@@ -4,7 +4,7 @@ Port of ``primia_tpu/cli/evaluate.py``: loads a checkpoint (its stored
 ``args`` and ``val_mean_std``), runs the model over an image-folder test
 set and prints the stats table (confusion matrix, per-class
 recall/precision/F1, MCC, ROC-AUC). Runs on CUDA unless ``--device cpu``.
-Needs scikit-learn and tabulate for the metrics and the table.
+The metrics are numpy only; the table needs tabulate.
 """
 
 from __future__ import annotations

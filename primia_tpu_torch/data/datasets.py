@@ -1,8 +1,8 @@
 """Host-side image ingest and dataset classes.
 
-Port of ``primia_tpu/data/datasets.py`` (the serving path's part:
-``CombinedLoader``, ``ImageFolderDataset``, ``PathDataset`` and the
-materialize cache). Decode (PIL, or the DICOM parser in ``.dicom``) and
+Port of ``primia_tpu/data/datasets.py`` (``CombinedLoader``,
+``ImageFolderDataset``, ``PathDataset``, ``Subset``, ``random_split`` and
+the materialize cache). Decode (PIL, or the DICOM parser in ``.dicom``) and
 square resize to ``inference_resolution`` run once, in a thread pool,
 into one contiguous uint8 ``(N, R, R, C)`` array; the predict step moves
 batches of it to the device.
@@ -216,6 +216,32 @@ class ImageFolderDataset(Dataset):
                     labels.append(self.class_to_idx[cls])
         self.paths = paths
         self.labels = np.asarray(labels, np.int32)
+
+
+class Subset(Dataset):
+    """Index-subset view (reference ``Subset``, ``dataloader.py:428-437``)."""
+
+    def __init__(self, dataset: Dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, np.int64)
+        self.channels = dataset.channels
+        self.classes = dataset.classes
+        self.paths = [dataset.paths[i] for i in self.indices]
+        self.labels = dataset.labels[self.indices] if dataset.labels is not None else None
+
+
+def random_split(dataset: Dataset, lengths: Sequence[int], seed: int = 0) -> List[Subset]:
+    """Shuffled split with torch.random_split semantics (reference
+    ``dataloader.py:440-450``), the permutation from numpy's
+    ``default_rng(seed)`` as in the JAX package, so both split alike."""
+    if sum(lengths) != len(dataset):
+        raise ValueError("Sum of input lengths does not equal the length of the input dataset!")
+    indices = np.random.default_rng(seed).permutation(sum(lengths))
+    out, offset = [], 0
+    for length in lengths:
+        out.append(Subset(dataset, indices[offset : offset + length]))
+        offset += length
+    return out
 
 
 class PathDataset(Dataset):

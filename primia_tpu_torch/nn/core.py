@@ -7,9 +7,9 @@ weights OIHW and linear weights (out, in) — ``nn/jax_params.py`` maps one
 layout onto the other. Convolutions go to ``F.conv2d`` (cuDNN on the
 card), as the JAX package left them to XLA.
 
-Only inference-mode normalisation is ported so far: batch norm from its
-running statistics, and group norm (which has no running statistics).
-Train-mode batch norm comes with the training slice (ROADMAP).
+Batch norm runs in eval mode from its running statistics and in train
+mode from the batch's, with torch's running-statistics semantics; group
+norm has no running statistics.
 """
 
 from __future__ import annotations
@@ -82,9 +82,19 @@ class Conv(nn.Module):
 
 
 class Norm(nn.Module):
-    """Batch norm (``kind="batch"``, eval mode) or group norm
-    (``kind="group"``). Both keep the same weights and BN-shaped buffers,
-    so checkpoints are layout-identical, as in the JAX package."""
+    """Batch norm (``kind="batch"``) or group norm (``kind="group"``).
+    Both keep the same weights and BN-shaped buffers, so checkpoints are
+    layout-identical, as in the JAX package.
+
+    Train-mode batch norm follows ``primia_tpu/nn/core.py:batch_norm``
+    (train=True): float32 batch statistics over (N, H, W), the biased
+    variance to normalise, the *unbiased* one into ``running_var``,
+    ``new = (1 - 0.1) * old + 0.1 * batch`` and ``num_batches_tracked += 1``.
+    It is ``F.batch_norm``, which computes exactly that (the JAX package
+    left BN to XLA); a bfloat16 input keeps float32 statistics and
+    parameters."""
+
+    momentum = 0.1
 
     def __init__(self, c: int, kind: str = "batch", eps: float = 1e-5):
         super().__init__()
@@ -101,8 +111,10 @@ class Norm(nn.Module):
         if self.kind == "group":
             return group_norm(x, self.weight, self.bias, eps=self.eps)
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch norm is not ported yet (ROADMAP, training slice); "
-                "call .eval() on the model")
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=True, momentum=self.momentum,
+                                eps=self.eps)
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, self.eps)

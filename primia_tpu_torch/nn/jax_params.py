@@ -16,7 +16,7 @@ linear -> ``weight`` (transposed)/``bias``; ``gamma``/``beta`` of a norm
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -85,7 +85,75 @@ def _listify(node):
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A copy: a CPU tensor's ``numpy()`` shares its memory, and the
+    trees must not change when the model trains on."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _leaves(tree):
+    """Leaves in ``jax.tree.leaves`` order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_leaves(module: nn.Module) -> List[Tuple[str, str]]:
+    """``(parameter name, layout)`` for every leaf of the module's JAX
+    ``params`` tree, in ``jax.tree.leaves`` order, which is the order of
+    ``ravel_pytree``: the JAX optimizers store their moments as one flat
+    vector in it. Layout ``"conv"`` (OIHW here, HWIO there), ``"linear"``
+    ((out, in) here, (in, out) there) or ``"vector"``."""
+    flat: Dict[str, Dict[str, Tuple[str, str]]] = {}
+    for name, m in module.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, Conv):
+            flat[name] = {"w": (pre + "weight", "conv")}
+        elif isinstance(m, nn.Linear):
+            flat[name] = {"w": (pre + "weight", "linear"), "b": (pre + "bias", "vector")}
+        elif isinstance(m, Norm):
+            flat[name] = {"gamma": (pre + "weight", "vector"), "beta": (pre + "bias", "vector")}
+    return list(_leaves(_nest(flat)))
+
+
+def _jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "conv":
+        return t.permute(2, 3, 1, 0)
+    if layout == "linear":
+        return t.t()
+    return t
+
+
+def flatten_jax(tensors: Dict[str, torch.Tensor], leaves: List[Tuple[str, str]]) -> torch.Tensor:
+    """One flat vector of ``tensors`` (named like the module's parameters)
+    in the JAX layout and ``ravel_pytree`` order of ``leaves``."""
+    return torch.cat([_jax_layout(tensors[n], lay).reshape(-1) for n, lay in leaves])
+
+
+def unflatten_jax(flat, leaves: List[Tuple[str, str]],
+                  like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`flatten_jax`: a flat vector in the JAX layout ->
+    tensors shaped, typed and placed like ``like``."""
+    flat = torch.as_tensor(np.asarray(flat)).reshape(-1)
+    out, off = {}, 0
+    for n, lay in leaves:
+        ref = like[n]
+        jshape = tuple(_jax_layout(torch.empty(ref.shape, device="meta"), lay).shape)
+        k = ref.numel()
+        a = flat[off:off + k].reshape(jshape)
+        if lay == "conv":
+            a = a.permute(3, 2, 0, 1)
+        elif lay == "linear":
+            a = a.t()
+        out[n] = a.to(device=ref.device, dtype=ref.dtype).contiguous()
+        off += k
+    if off != flat.numel():
+        raise ValueError(f"flat vector of {flat.numel()} values for {off} parameters")
+    return out
 
 
 def to_jax_tree(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -95,9 +163,9 @@ def to_jax_tree(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     state: Dict[str, Dict[str, np.ndarray]] = {}
     for name, m in module.named_modules():
         if isinstance(m, Conv):
-            params[name] = {"w": _np(m.weight).transpose(2, 3, 1, 0).copy()}
+            params[name] = {"w": np.ascontiguousarray(_np(m.weight).transpose(2, 3, 1, 0))}
         elif isinstance(m, nn.Linear):
-            params[name] = {"w": _np(m.weight).T.copy(), "b": _np(m.bias)}
+            params[name] = {"w": np.ascontiguousarray(_np(m.weight).T), "b": _np(m.bias)}
         elif isinstance(m, Norm):
             params[name] = {"gamma": _np(m.weight), "beta": _np(m.bias)}
             state[name] = {"mean": _np(m.running_mean), "var": _np(m.running_var),

@@ -1,14 +1,15 @@
 """ResNet-18 with the reference's MPC-compatibility quirks, as an
 ``nn.Module``.
 
-Port of ``primia_tpu/nn/resnet.py`` (inference): configurable stem
+Port of ``primia_tpu/nn/resnet.py``, in train and eval mode (``Norm``
+picks batch or running statistics by ``module.training``): configurable stem
 pooling (max or avg, 3x3/s2/p1), the optional pool<->relu swap of the
 stem, batch or group norm, and the fixed ``AvgPool(input_size // 32)``
 head in place of adaptive pooling. Attribute names follow the JAX
 parameter tree (``conv1``, ``bn1``, ``layerK[i].down_conv``, ``fc``), so
 ``nn/jax_params.py`` maps a JAX checkpoint onto the state dict by name.
-The JAX package's space-to-depth stem is a training-time TPU rewrite and
-is not ported.
+The JAX package's space-to-depth stem (``train/steps.py:79-81``) is an
+exact training-time TPU layout rewrite and is not ported.
 """
 
 from __future__ import annotations

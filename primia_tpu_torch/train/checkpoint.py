@@ -19,8 +19,10 @@ without needing a template at load time.
 
 from __future__ import annotations
 
+import csv
 import io
 import json
+from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -128,7 +130,9 @@ def save_model(
     """Write a checkpoint of ``model`` (one of the port's modules) that
     both packages load: ``{epoch, args, val_mean_std, model_state_dict:
     {params, state}, optim_state_dict}`` with the weights in the JAX
-    layout."""
+    layout. ``opt_state`` is the optimizer's ``state_to_jax()``
+    (``train/optim.py``): ``AdamState``/``SGDState`` with the moments as
+    one flat vector in the JAX parameter order."""
     params, state = to_jax_tree(model)
     save_tree(path, {
         "epoch": int(epoch),
@@ -145,3 +149,29 @@ def load_model(path) -> Dict[str, Any]:
     tree["args"] = Arguments.from_json(tree["args"])
     return tree
 
+
+def save_config_results(args: Arguments, score: float, timestamp: Optional[str] = None,
+                        table: str = "") -> None:
+    """Append the run's full config and best score as one row to the
+    registry CSV ``args.save_file`` (reference ``save_config_results``,
+    ``utils.py:859-874``). The columns are the union of the file's and
+    the row's, as the JAX package's pandas concat gives them; written
+    with the ``csv`` module, so it needs no pandas."""
+    row = {k: ("" if v is None else v) for k, v in args.to_dict().items()}
+    row["timestamp"] = timestamp or datetime.now().strftime("%d.%m.%Y %H:%M:%S")
+    row["best_validation_score"] = score
+    row["stats_table"] = table
+    path = Path(args.save_file)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rows, fields = [], []
+    if path.is_file():
+        with path.open(newline="") as f:
+            reader = csv.DictReader(f)
+            fields = list(reader.fieldnames or [])
+            rows = list(reader)
+    fields += [k for k in row if k not in fields]
+    rows.append(row)
+    with path.open("w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fields, restval="")
+        w.writeheader()
+        w.writerows(rows)

@@ -207,6 +207,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "primia_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda_kernels.py"]
     assert len(files) > 10
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"primia_tpu_torch/{m}.py" for m in (
+        "ops/cuda_tent", "ops/augment", "train/losses", "train/optim", "train/lr",
+        "train/monitor", "train/loop", "cli/train")} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "primia_tpu")]
     assert bad == []
