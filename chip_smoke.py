@@ -50,17 +50,48 @@ Phases, each reported on its own line; any failure exits nonzero:
                   step with augmentation and mixup off on the card against
                   the CPU from the same params and batch (loss within 1e-4
                   relative, BN running statistics within 1e-4).
-8. kernels        one JSON line with each kernel's error, times, bound and
+8. dcf_sign       K4, the FSS sign kernel, against its plain version on the
+                  card, bit for bit, at N = 802,816 (the largest call of a
+                  224 px forward at batch 1: the stem max-pool's first
+                  round), at a ragged N = 300 and at five boundary points;
+                  the share sums equal (1 - 2c) * 1{x < alpha}. kernel_ms,
+                  call_ms, plain_ms as above; bound_ms from the integer
+                  operations (the rotations and xors of the Threefry blocks
+                  these inputs need, which only the INT32 lanes run: 12
+                  blocks a level over 31 levels, and 3 more a level past the
+                  first level where x and alpha differ; at 132 SMs x 64
+                  INT32 lanes a clock at the maximum SM clock nvidia-smi
+                  reports) or the bytes, whichever is larger; no PyTorch
+                  call computes a DCF. Then the kernel's SASS opcode counts
+                  (cuobjdump -sass; the level loop is not unrolled).
+9. ring           the card's byte-limb ring conv (int8 torch._int_mm) against
+                  the CPU's native int64 conv, bit for bit, at the stem conv
+                  at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
+                  layer4 3x3 conv (512->512 at 7x7); both times.
+10. encrypt       slice 3's main path: the inference CLI with
+                  --encrypted_inference (fss) on cuda, in-process, on 8 of the
+                  serve phase's DICOMs with its checkpoint at --batch_size 4,
+                  counters set to 0 just before and read just after (K4 21
+                  times per forward, each CLAHE kernel once per batch); the
+                  encrypted logits against the card's plain predict step
+                  (max |d| <= max(0.02, 1e-3 * max |logit|), argmax equal
+                  wherever the plain top-two margin exceeds that); once more
+                  with --mpc_batch_tile 2; the encrypted predict timed at
+                  batch 1 and 4 (p50/p75 over 5 batches after 1 warm-up, s per
+                  image, peak memory, device busy ms, idle share and device ms
+                  by category from the profiler over one batch).
+11. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
-                  for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2;
-                  every path's counts beside them, and a kernel launched no
-                  time on its path fails the run), the card's name and power
-                  limit, and as the last line {"ok": true, "device": {...}}.
+                  for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
+                  the encrypted CLI for K4; every path's counts beside them,
+                  and a kernel launched no time on its path fails the run),
+                  the card's name and power limit, and as the last line
+                  {"ok": true, "device": {...}}.
 
 Nothing here imports JAX or the JAX package. Work files go to
 ``build/chip_smoke/``, and the profile tables to ``--profile_out`` (default
-``build/chip_smoke/profile.txt``; the train step's beside it, with
-``.train`` before the suffix).
+``build/chip_smoke/profile.txt``; the train step's and the encrypted
+predict's beside it, with ``.train`` or ``.encrypt`` before the suffix).
 """
 
 from __future__ import annotations
@@ -99,7 +130,24 @@ KERNELS = {
     "tent_bilinear": {"replaces": "primia_tpu/ops/pallas_tent.py:54",
                       "path": "train_twopass0", "kernel": "tent_bilinear_kernel",
                       "source": "primia_tpu_torch/csrc/tent.cu"},
+    "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
+                 "kernel": "dcf_sign_kernel", "source": "primia_tpu_torch/csrc/dcf.cu"},
 }
+# K4's work (csrc/dcf.cu): a Threefry-2x32-20 block's 20 rotations (funnel
+# shifts) and 20 xors issue only on an SM's 64 INT32 lanes; its adds may
+# also issue on the FMA pipe as IMAD, so they do not raise the least time.
+# The blocks of one seed share the counter's second word, so their first
+# rotation is one. A level's key walk runs both children of both parties'
+# seeds (2 x 6 blocks); past the first level where x and alpha differ, the
+# merged evaluation walk runs 3 blocks of one seed. 44 bytes in (8 seed
+# words, alpha, c, x) and 16 out, an element.
+DCF_LEVELS = 31
+DCF_KEY_OPS_PER_LEVEL = 2 * (6 * 40 - 5)
+DCF_EVAL_OPS_PER_LEVEL = 3 * 40 - 2
+DCF_BYTES_PER_ELEMENT = 60
+INT32_LANES = 132 * 64  # H100 SXM: 132 SMs x 64 INT32 lanes a clock
+ENCRYPT_IMAGES, ENCRYPT_BATCH = 8, 4
+SIGNS_PER_FORWARD = 21  # 17 ReLUs + 4 max-pool rounds of ResNet-18
 
 
 class PhaseError(RuntimeError):
@@ -130,9 +178,9 @@ def cuda_ms(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def profile(torch, fn, iters):
+def trace(torch, fn, iters):
     """Run ``fn`` ``iters`` times under torch.profiler; returns the
-    key_averages of the window."""
+    profiler."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -140,7 +188,12 @@ def profile(torch, fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return prof.key_averages()
+    return prof
+
+
+def profile(torch, fn, iters):
+    """The key_averages of :func:`trace`'s window."""
+    return trace(torch, fn, iters).key_averages()
 
 
 def device_ms_by_category(avgs, iters):
@@ -185,17 +238,17 @@ def bound(nbytes, nops):
 
 
 def reset_launches():
-    from primia_tpu_torch.ops import cuda_clahe, cuda_tent
+    from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
 
-    for counts in (cuda_clahe.launches, cuda_tent.launches):
+    for counts in (cuda_clahe.launches, cuda_tent.launches, cuda_dcf.launches):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches():
-    from primia_tpu_torch.ops import cuda_clahe, cuda_tent
+    from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
 
-    return {**cuda_clahe.launches, **cuda_tent.launches}
+    return {**cuda_clahe.launches, **cuda_tent.launches, **cuda_dcf.launches}
 
 
 def phase_build():
@@ -204,7 +257,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    for name in ("clahe", "tent"):
+    for name in ("clahe", "tent", "dcf"):
         check(name in libs and libs[name].is_file(), f"{name}.cu did not build")
     say("build", seconds=f"{secs:.3f}", libraries=",".join(sorted(libs)))
 
@@ -359,6 +412,262 @@ def phase_tent(torch, seed):
     return rec
 
 
+def dcf_int32_ops(torch, alpha, x):
+    """INT32-lane operations K4 needs for these inputs: the key walk's at
+    every level, the merged evaluation's past the first level where x and
+    alpha differ (as many levels as the bit length of alpha ^ x, less
+    one)."""
+    diff = (alpha.long() ^ x.long()) & 0xFFFFFFFF
+    bit_length = torch.frexp(diff.double()).exponent.long()  # 0 where equal
+    past = int((bit_length - 1).clamp(min=0).sum())
+    return alpha.shape[0] * DCF_LEVELS * DCF_KEY_OPS_PER_LEVEL + past * DCF_EVAL_OPS_PER_LEVEL
+
+
+def dcf_sass_opcodes():
+    """Opcode counts (by mnemonic before the first dot) of
+    ``dcf_sign_kernel`` from ``cuobjdump -sass`` of the built library. The
+    level loop is not unrolled, so they are one level's plus the set-up
+    and the end. None where cuobjdump is missing."""
+    import re
+
+    from primia_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path("dcf"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    funcs = [f for f in sass.split("Function : ")[1:] if "dcf_sign_kernel" in f.split()[0]]
+    check(len(funcs) == 1, "cuobjdump shows no single dcf_sign_kernel")
+    counts = {}
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", funcs[0]):
+        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def phase_dcf(torch, seed, sm_max_mhz):
+    """Phase 8: K4 against its plain version on the card, bit for bit.
+    Returns its record, with the times at the largest call of a forward
+    at batch 1."""
+    from primia_tpu_torch.ops import cuda_dcf as cd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def words(n, high):
+        return torch.randint(0, high, (n,), dtype=torch.int32, device=dev, generator=g)
+
+    def random_case(n):
+        seeds = torch.randint(-(1 << 31), 1 << 31, (2, n, 4), dtype=torch.int32, device=dev,
+                              generator=g)
+        return seeds, words(n, 1 << 31), words(n, 2), words(n, 1 << 31)
+
+    boundary = (random_case(5)[0],
+                torch.tensor([5, 0, (1 << 31) - 1, 7, 7], dtype=torch.int32, device=dev),
+                torch.tensor([0, 1, 0, 1, 0], dtype=torch.int32, device=dev),
+                torch.tensor([5, 0, 0, 6, 8], dtype=torch.int32, device=dev))
+    peak_int_ops = INT32_LANES * sm_max_mhz * 1e6
+    rec = {"max_abs_err": 0.0}
+    for name, ops in (("802816", random_case(802_816)), ("300", random_case(300)),
+                      ("boundary", boundary)):
+        seeds, alpha, c, x = ops
+        n = alpha.shape[0]
+        got = cd.dcf_sign(*ops)
+        torch.cuda.synchronize()
+        plain = cd.dcf_sign_plain(*ops)
+        err = 0.0 if torch.equal(got, plain) else float((got - plain).abs().max())
+        check(err == 0.0, f"dcf_sign differs from plain at {name}: {err}")
+        want = torch.where(x.long() < alpha.long(), 1 - 2 * c.long(), torch.zeros_like(x.long()))
+        check(torch.equal(got.sum(0), want), f"dcf_sign breaks the DCF contract at {name}")
+        if name == "boundary":
+            check(got.sum(0).tolist() == [0, 0, 1, -1, 0], "dcf_sign boundary points")
+        int_ops = dcf_int32_ops(torch, alpha, x)
+        t_ops = int_ops / peak_int_ops * 1e3
+        t_bytes = n * DCF_BYTES_PER_ELEMENT / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        call_ms = cuda_ms(torch, lambda: cd.dcf_sign(*ops), 20)
+        plain_ms = cuda_ms(torch, lambda: cd.dcf_sign_plain(*ops), 3, warmup=1)
+        dev_ms = kernel_device_ms(profile(torch, lambda: cd.dcf_sign(*ops), 10),
+                                  KERNELS["dcf_sign"]["kernel"])
+        say("dcf_sign", n=n, case=name, max_abs_err=err,
+            kernel_ms="not measured" if dev_ms is None else f"{dev_ms:.6f}",
+            call_ms=f"{call_ms:.6f}", plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
+            bound_by=f"{bound_by} (int32)" if bound_by == "operations" else bound_by,
+            int32_lane_ops=int_ops, bytes=n * DCF_BYTES_PER_ELEMENT, library_ms="none")
+        if name == "802816":
+            rec.update(ms=call_ms if dev_ms is None else dev_ms, call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None)
+    sass = dcf_sass_opcodes()
+    say("dcf_sign", sass_opcodes="not available" if sass is None else json.dumps(sass))
+    return rec
+
+
+def phase_ring(torch, seed):
+    """Phase 9: the card's byte-limb ring conv against the CPU's int64."""
+    from primia_tpu_torch.mpc import ring_ops
+    from primia_tpu_torch.mpc.shares import rand_ring
+
+    g = torch.Generator().manual_seed(seed)
+    for name, xs, ws, stride, pad in (("stem", (1, 3, RES, RES), (64, 3, 7, 7), 2, 3),
+                                      ("layer4", (1, 512, 7, 7), (512, 512, 3, 3), 1, 1)):
+        x, w = rand_ring(g, xs), rand_ring(g, ws)
+        t0 = time.perf_counter()
+        ref = ring_ops.ring_conv2d(x, w, stride, pad)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        xc, wc = x.cuda(), w.cuda()
+        got = ring_ops.ring_conv2d(xc, wc, stride, pad).cpu()
+        check(torch.equal(got, ref), f"limb ring conv differs from the CPU's int64 at {name}")
+        card_ms = cuda_ms(torch, lambda: ring_ops.ring_conv2d(xc, wc, stride, pad), 10)
+        say("ring", case=name, x=xs, w=ws, stride=stride, padding=pad, equal=True,
+            card_limb_ms=f"{card_ms:.6f}", cpu_int64_ms=f"{cpu_ms:.3f}")
+
+
+def encrypt_ms_by_category(avgs, gemm_kernels):
+    """Device milliseconds of the profiled window by category, with K4 and
+    the int8 limb GEMMs (``gemm_kernels``: the kernels ``aten::_int_mm``
+    launched) split out."""
+    from torch.autograd import DeviceType
+
+    cats = {"dcf_kernel": 0.0, "int8_gemm": 0.0, "clahe_kernels": 0.0, "memcpy": 0.0,
+            "other": 0.0}
+    for e in avgs:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        k = e.key
+        if "dcf_sign" in k:
+            cat = "dcf_kernel"
+        elif k in gemm_kernels:
+            cat = "int8_gemm"
+        elif "clahe" in k:
+            cat = "clahe_kernels"
+        elif "Memcpy" in k or "Memset" in k:
+            cat = "memcpy"
+        else:
+            cat = "other"
+        cats[cat] += e.self_device_time_total * 1e-3
+    return cats
+
+
+def phase_encrypt(torch, seed, work, profile_out):
+    """Phase 10: the encrypted inference CLI on the card, its logits
+    against the plain predict step, the tiled form, and timings. Returns
+    the launch counts of the CLI's run."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from primia_tpu_torch.cli import inference
+    from primia_tpu_torch.data import PathDataset
+    from primia_tpu_torch.mpc.inference import build_encrypted_predict
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.nn.jax_params import from_jax_tree
+    from primia_tpu_torch.train import checkpoint as ckpt
+    from primia_tpu_torch.train.steps import build_predict_step
+
+    weights = work / "resnet18-canonical.pt"
+    data = work / "encrypt_images"
+    data.mkdir()
+    for f in sorted((work / "images").glob("*.dcm"))[:ENCRYPT_IMAGES]:
+        shutil.copy(f, data / f.name)
+    n_batches = ENCRYPT_IMAGES // ENCRYPT_BATCH
+    say("encrypt", images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH, protocol="fss",
+        weights=weights.relative_to(ROOT))
+
+    def run_cli(extra):
+        argv = ["--data_dir", str(data), "--model_weights", str(weights), "--batch_size",
+                str(ENCRYPT_BATCH), "--device", "cuda", "--encrypted_inference", *extra]
+        out, err = io.StringIO(), io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            result = inference.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        lines = out.getvalue().splitlines()
+        check(json.loads(lines[0]) == json.loads(json.dumps(result))
+              and lines[-1].startswith("Took "), "encrypted CLI output contract broken")
+        preds = result["Inference Results"]
+        check(len(preds) == ENCRYPT_IMAGES, f"bad encrypted results: {str(preds)[:200]}")
+        return [preds[i] for i in range(ENCRYPT_IMAGES)], launches, secs
+
+    state = ckpt.load_model(weights)
+    args = state["args"]
+    mean, std = state["val_mean_std"]
+    msd = state["model_state_dict"]
+    model = create_model(args, num_classes=3, device="cuda")
+    model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+    imgs, _ = PathDataset(data, channels=3).materialize(RES)
+    chunks = [imgs[i:i + ENCRYPT_BATCH] for i in range(0, ENCRYPT_IMAGES, ENCRYPT_BATCH)]
+    plain = build_predict_step(model, args, mean, std, "cuda")
+    want = torch.cat([plain(c) for c in chunks]).float().cpu()
+    limit = max(0.02, 1e-3 * float(want.abs().max()))
+    top2 = want.topk(2, dim=1).values
+    sure = (top2[:, 0] - top2[:, 1]) > limit
+
+    results = {}
+    for tile in (None, 2):
+        extra = [] if tile is None else ["--mpc_batch_tile", str(tile)]
+        preds, launches, cli_s = run_cli(extra)
+        forwards = n_batches * (1 if tile is None else -(-ENCRYPT_BATCH // tile))
+        expect = {"dcf_sign": SIGNS_PER_FORWARD * forwards, "clahe_lut": forwards,
+                  "clahe_apply": forwards, "tent_rows": 0, "tent_bilinear": 0}
+        check(launches == expect, f"encrypted CLI (tile {tile}) launches {launches}, "
+              f"expected {expect}")
+        enc = build_encrypted_predict(model, args, mean, std, "cuda",
+                                      precision_fractional=args.precision_fractional or 16,
+                                      batch_tile=tile)
+        got = torch.cat([enc(c) for c in chunks]).cpu()
+        dl = float((got - want).abs().max())
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()) and dl <= limit,
+              f"encrypted logits (tile {tile}) off the plain step: max |d| {dl} > {limit}")
+        check(bool((got.argmax(1) == want.argmax(1))[sure].all()),
+              f"encrypted argmax (tile {tile}) differs where the plain margin exceeds {limit}")
+        check(preds == got.argmax(1).tolist(), f"CLI predictions (tile {tile}) {preds} are "
+              f"not the encrypted logits' argmax {got.argmax(1).tolist()}")
+        say("encrypt", mpc_batch_tile=tile, cli_seconds=f"{cli_s:.4f}",
+            launches=json.dumps(launches), max_abs_dlogit=dl, limit=limit,
+            max_abs_logit=float(want.abs().max()), argmax_equal=int((got.argmax(1) ==
+                                                                    want.argmax(1)).sum()),
+            margin_above_limit=int(sure.sum()), predictions=preds)
+        results[tile] = (launches, enc)
+
+    enc = results[None][1]
+    for B in (1, ENCRYPT_BATCH):
+        x = imgs[:B]
+        enc(x)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc(x)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        q = np.percentile(batch_ms, [50, 75])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        say("encrypt", batch=B, batches_timed=len(batch_ms), batch_ms_p50=f"{q[0]:.4f}",
+            batch_ms_p75=f"{q[1]:.4f}", s_per_image_p50=f"{q[0] * 1e-3 / B:.6f}",
+            peak_memory_gb=f"{peak_gb:.3f}")
+    prof = trace(torch, lambda: enc(imgs[:ENCRYPT_BATCH]), 1)
+    avgs = prof.key_averages()
+    gemm_kernels = {k.name for e in prof.events() if e.name == "aten::_int_mm"
+                    for k in e.kernels}
+    check(gemm_kernels, "the profile links no kernel to aten::_int_mm")
+    enc_profile = profile_out.with_name(profile_out.stem + ".encrypt" + profile_out.suffix)
+    enc_profile.parent.mkdir(parents=True, exist_ok=True)
+    enc_profile.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=40))
+    cats = encrypt_ms_by_category(avgs, gemm_kernels)
+    busy = sum(cats.values())
+    launched = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+    idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
+    say("encrypt", batch=ENCRYPT_BATCH, device_busy_ms_per_batch=f"{busy:.4f}",
+        idle_share=idle, device_ops_per_batch=launched)
+    say("encrypt", device_ms_per_batch=json.dumps({k: round(v, 6) for k, v in cats.items()}))
+    return results[None][0]
+
+
 def synthetic_xrays(np, rng, n):
     """uint8 224x224 images: a bright blob on a dark field, with noise."""
     yy, xx = np.mgrid[0:RES, 0:RES].astype(np.float32)
@@ -422,8 +731,8 @@ def phase_serve(torch, seed, work, profile_out):
     for name in cc.launches:
         check(launches[name] == n_batches,
               f"{name} launched {launches[name]} times for {n_batches} batches")
-    check(launches["tent_rows"] == launches["tent_bilinear"] == 0,
-          f"the serving path launched a warp kernel: {launches}")
+    check(launches["tent_rows"] == launches["tent_bilinear"] == launches["dcf_sign"] == 0,
+          f"the serving path launched a warp or DCF kernel: {launches}")
     say("serve", cli_seconds=f"{cli_s:.4f}", cli_img_per_s=f"{N_IMAGES / cli_s:.2f}",
         launches=json.dumps(launches), predictions=lines[1])
 
@@ -538,7 +847,7 @@ def phase_train(torch, seed, work, profile_out):
         os.chdir(cwd)
     (work / "train_cli.log").write_text(out.getvalue())
     want = {"tent_rows": 4 * steps, "tent_bilinear": 0, "clahe_lut": steps,
-            "clahe_apply": steps}
+            "clahe_apply": steps, "dcf_sign": 0}
     check(launches == want, f"train CLI launches {launches}, expected {want}")
     finals = sorted((work / "model_weights").glob("final_*.pt"))
     check(len(finals) == 1, f"train CLI wrote {len(finals)} final checkpoints")
@@ -667,16 +976,25 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout else ""
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
     try:
         check(card, f"nvidia-smi failed: {smi.stderr.strip()}")
+        check(clk.returncode == 0 and clk.stdout.strip(),
+              f"nvidia-smi clocks failed: {clk.stderr.strip()}")
+        sm_max_mhz, sm_mhz = (float(v) for v in clk.stdout.splitlines()[0].split(","))
         say("device", name=torch.cuda.get_device_name(0),
             capability=torch.cuda.get_device_capability(0), torch=torch.__version__,
-            cuda=torch.version.cuda)
+            cuda=torch.version.cuda, sm_clock_max_mhz=sm_max_mhz, sm_clock_mhz=sm_mhz)
         phase_build()
         rec = phase_kernels(torch, opts.seed)
         rec.update(phase_tent(torch, opts.seed))
+        rec["dcf_sign"] = phase_dcf(torch, opts.seed, sm_max_mhz)
+        phase_ring(torch, opts.seed)
         profile_out = opts.profile_out.resolve()
         by_path = {"serve": phase_serve(torch, opts.seed, work, profile_out)}
+        by_path["encrypt"] = phase_encrypt(torch, opts.seed, work, profile_out)
         by_path["train"], by_path["train_twopass0"] = phase_train(torch, opts.seed, work,
                                                                   profile_out)
         for name, meta in KERNELS.items():

@@ -4,8 +4,12 @@ Port of the plain path of ``primia_tpu/cli/inference.py``: loads a
 checkpoint (its ``args`` and ``val_mean_std``), classifies every image in
 ``--data_dir`` and writes ``{"Inference Results": {index: prediction}}``
 as JSON to stdout, then the class counts and the wall-clock time. Runs
-on CUDA unless ``--device cpu``. Encrypted and remote inference
-(``--encrypted_inference``, ``--websockets_config``) are not ported yet.
+on CUDA unless ``--device cpu``. ``--encrypted_inference`` runs the
+forward over secret shares (``mpc/inference.py``: two computing parties
+and the dealer simulated on the device, FSS comparisons on kernel K4,
+fixed point in Z_{2^64}); the output contract is the same. Remote
+inference (``--websockets_config``, ``--http_protocol``) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,8 +30,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--model_weights", type=str, required=True, help="model weights to use"
     )
     parser.add_argument(
+        "--encrypted_inference", action="store_true",
+        help="Perform encrypted inference",
+    )
+    parser.add_argument(
+        "--protocol", type=str, default="fss", choices=("snn", "fss"),
+        help="MPC comparison protocol for encrypted inference: fss (the DCF "
+        "comparison, kernel K4); snn (SecureNN) is not ported yet and raises",
+    )
+    parser.add_argument(
         "--batch_size", type=int, default=1,
         help="Images per forward pass (the reference runs 1).",
+    )
+    parser.add_argument(
+        "--mpc_batch_tile", type=int, default=None,
+        help="Encrypted path: run the share-space forward this many images "
+        "at a time (each tile with its own dealer stream), bounding the live "
+        "dealer material. Default: the whole batch at once.",
     )
     parser.add_argument(
         "--device", choices=DEVICES, default="cuda",
@@ -63,7 +82,15 @@ def run(cmd_args) -> dict:
     model = create_model(args, num_classes=len(class_names), device=device)
     msd = state["model_state_dict"]
     model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
-    predict = build_predict_step(model, args, mean, std, device)
+    if cmd_args.encrypted_inference:
+        from primia_tpu_torch.mpc.inference import build_encrypted_predict
+
+        predict = build_encrypted_predict(
+            model, args, mean, std, device,
+            precision_fractional=args.precision_fractional or 16,
+            protocol=cmd_args.protocol, batch_tile=cmd_args.mpc_batch_tile)
+    else:
+        predict = build_predict_step(model, args, mean, std, device)
 
     B = max(int(cmd_args.batch_size), 1)
     total_pred = []

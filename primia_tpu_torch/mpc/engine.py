@@ -1,0 +1,159 @@
+"""The MPC engine: the plain ops of a forward pass, over additive shares.
+
+Port of ``primia_tpu/mpc/engine.py``, the part encrypted inference with
+the FSS comparison needs, on NCHW activations ``(2, B, C, H, W)`` and
+OIHW conv weights:
+
+- conv2d / linear: Beaver triples shaped like the op
+  (``mpc/beaver.py``), truncation after every fixed-point product;
+- relu: one sign extraction (``mpc/compare.py``, kernel K4) and one
+  Beaver product, ``relu(x) = x * (1 - msb(x))``;
+- max_pool: the window's shifted views, then a tournament max, each round
+  one batched comparison;
+- avg_pool: the int64 window sum times ``encode(1 / w^2)``, truncated;
+- affine: folded inference batch norm, one Beaver product.
+
+Dealer randomness comes from the context's ``torch.Generator``, drawn in
+the order the ops run. Not ported yet (ROADMAP, queue 1, slice 3):
+``batch_norm`` and ``group_norm`` (private statistics, which need
+``mpc/functions.py``), the RNN ops, and the SecureNN comparison
+(``protocol="snn"``, ``mpc/securenn.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from primia_tpu_torch.mpc import beaver, compare, fixed
+from primia_tpu_torch.mpc import shares as S
+from primia_tpu_torch.mpc.shares import AShare
+
+# Ring padding of max pooling: decodes to -2^14 at 16 fractional bits,
+# far below any activation but inside the 32-bit comparison domain.
+_PAD_NEG = -(1 << 30)
+
+
+def check_protocol(protocol: str) -> None:
+    """Only ``"fss"`` (the DCF comparison, the inference CLI's default) is
+    ported; ``"snn"`` raises ``NotImplementedError``."""
+    if protocol == "snn":
+        raise NotImplementedError(
+            "protocol 'snn' (SecureNN, mpc/securenn.py) is not ported yet: "
+            "ROADMAP, queue 1, slice 3")
+    if protocol != "fss":
+        raise ValueError(f"unknown MPC protocol {protocol!r}")
+
+
+class MpcContext:
+    """The simulated dealer's random stream for one forward pass; the
+    private-comparison protocol is checked (:func:`check_protocol`) and
+    is the FSS comparison."""
+
+    def __init__(self, gen: torch.Generator, frac_bits: int = fixed.DEFAULT_FRAC_BITS,
+                 protocol: str = "fss"):
+        check_protocol(protocol)
+        self.gen = gen
+        self.frac_bits = frac_bits
+
+    def sign_shares(self, x: AShare) -> AShare:
+        """Shares of 1{x < 0}."""
+        return compare.sign_shares(self.gen, x)
+
+
+def _channel_shape(x: AShare, n_channels: int):
+    """Shape that puts a per-channel vector on x's channel axis (axis 1
+    of an NCHW or (B, N) value), with the party axis in front."""
+    return (2, 1, n_channels) + (1,) * (x.ndim - 2)
+
+
+class MpcEngine:
+    def __init__(self, ctx: MpcContext):
+        self.ctx = ctx
+
+    def _truncate(self, z: AShare) -> AShare:
+        return AShare(fixed.truncate_shares(z.data, self.ctx.frac_bits))
+
+    def _mul(self, x: AShare, y: AShare) -> AShare:
+        return self._truncate(beaver.mul(self.ctx.gen, x, y))
+
+    def _max_pair(self, a: AShare, b: AShare) -> AShare:
+        """max(a, b) = a + (b - a) * (1 - msb(b - a)): one comparison and
+        one product (not truncated: the bit is an integer)."""
+        d = S.sub(b, a)
+        pos = S.add_public(S.neg(self.ctx.sign_shares(d)), 1)
+        return S.add(a, beaver.mul(self.ctx.gen, d, pos))
+
+    # ---------------------------------------------------------------- ops
+
+    def conv2d(self, x: AShare, w: AShare, stride: int = 1, padding: int = 0) -> AShare:
+        return self._truncate(beaver.conv2d(self.ctx.gen, x, w, stride, padding))
+
+    def bias_add(self, x: AShare, b: AShare) -> AShare:
+        return AShare(x.data + b.data.reshape(_channel_shape(x, b.shape[0])))
+
+    def affine(self, x: AShare, scale: AShare, offset: AShare) -> AShare:
+        """Channelwise x * scale + offset (folded batch norm)."""
+        scale_b = scale.data.reshape(_channel_shape(x, scale.shape[0])).expand(x.data.shape)
+        return self.bias_add(self._mul(x, AShare(scale_b)), offset)
+
+    def relu(self, x: AShare) -> AShare:
+        pos = S.add_public(S.neg(self.ctx.sign_shares(x)), 1)
+        return beaver.mul(self.ctx.gen, x, pos)  # a bit product: no truncation
+
+    def max_pool(self, x: AShare, window: int, stride: int, padding: int = 0) -> AShare:
+        d = x.data  # (2, B, C, H, W)
+        if padding:
+            # the public pad enters party 0's share only: padding both
+            # would reconstruct to 2 * _PAD_NEG = -2^31, outside the domain
+            pad = (padding,) * 4
+            d = torch.stack([F.pad(d[0], pad, value=_PAD_NEG), F.pad(d[1], pad, value=0)])
+        H, W = d.shape[-2:]
+        Ho = (H - window) // stride + 1
+        Wo = (W - window) // stride + 1
+        views = [AShare(d[..., di:di + (Ho - 1) * stride + 1:stride,
+                          dj:dj + (Wo - 1) * stride + 1:stride])
+                 for di in range(window) for dj in range(window)]
+        # tournament: pair the first half with the second, one batched
+        # comparison a round; an odd view waits for the next round
+        while len(views) > 1:
+            half = len(views) // 2
+            merged = self._max_pair(S.stack(views[:half]), S.stack(views[half:2 * half]))
+            views = [AShare(m) for m in merged.data.unbind(1)] + views[2 * half:]
+        return views[0]
+
+    def avg_pool(self, x: AShare, window: int, stride: int, padding: int = 0) -> AShare:
+        d = x.data
+        if padding:
+            d = F.pad(d, (padding,) * 4)
+        summed = d.unfold(-2, window, stride).unfold(-2, window, stride).sum((-2, -1))
+        # public division: the product with encode(1 / w^2), truncated
+        inv = int(fixed.encode(1.0 / (window * window), self.ctx.frac_bits))
+        return self._truncate(AShare(summed * inv))
+
+    def linear(self, x: AShare, w: AShare, b: Optional[AShare] = None) -> AShare:
+        """x (B, in) against w in PyTorch's (out, in) layout."""
+        z = self._truncate(beaver.matmul(self.ctx.gen, x, AShare(w.data.transpose(1, 2))))
+        return z if b is None else self.bias_add(z, b)
+
+    def add(self, x: AShare, y: AShare) -> AShare:
+        return S.add(x, y)
+
+    def flatten(self, x: AShare) -> AShare:
+        return S.reshape(x, (x.shape[0], -1))
+
+
+# ----------------------------------------------------------- sharing utils
+
+def encode_and_share(gen: torch.Generator, tensors: Dict[str, torch.Tensor],
+                     frac_bits: int = fixed.DEFAULT_FRAC_BITS) -> Dict[str, AShare]:
+    """Float tensors -> their fixed-point sharings, drawn in the dict's
+    order."""
+    return {k: S.share(gen, fixed.encode(v, frac_bits)) for k, v in tensors.items()}
+
+
+def reveal_and_decode(x: AShare, frac_bits: int = fixed.DEFAULT_FRAC_BITS) -> torch.Tensor:
+    """Open and decode, to float64."""
+    return fixed.decode(S.reconstruct(x), frac_bits)

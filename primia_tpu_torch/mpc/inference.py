@@ -1,0 +1,169 @@
+"""Encrypted (SMPC) inference: the ResNet forward over secret shares.
+
+Port of ``primia_tpu/mpc/inference.py``. The model owner folds batch norm
+into a channelwise affine (``nn/core.py:bn_fold``, float32), encodes the
+weights in fixed point and shares them, once. For each batch (or tile of
+it) the data owner preprocesses in plaintext (u8 -> / 255 -> CLAHE, the
+kernels K3 -> ``(x - mean) / std`` in float32), encodes and shares; two
+computing parties and the dealer, simulated on one device on the leading
+party axis, run the forward in share space (``mpc/engine.py``: Beaver
+convs, DCF ReLUs and max-pool rounds on kernel K4); only the logits are
+revealed. With max pooling the stem pools before its ReLU (they commute),
+which quarters the private ReLU's elements, as the reference does.
+
+The port's ``ResNet`` is an ``nn.Module`` whose ``forward`` is plaintext;
+the share-space forward here walks its children in the JAX order
+(``primia_tpu/nn/resnet.py:resnet_forward``).
+
+Random streams: the model owner's, and per call of the predict function
+and per tile the data owner's and the dealer's, each a ``torch.Generator``
+on the device seeded from ``(stream, call, tile)``. Every batch gets fresh
+masks and Beaver triples: the parties open ``x - a`` for each product, so
+one mask ``a`` over two batches would reveal their difference. (The JAX
+package's ``build_encrypted_predict`` draws the same streams at every call.)
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from primia_tpu_torch.mpc import fixed
+from primia_tpu_torch.mpc import shares as S
+from primia_tpu_torch.mpc.engine import (MpcContext, MpcEngine, check_protocol,
+                                         encode_and_share, reveal_and_decode)
+from primia_tpu_torch.mpc.shares import AShare
+from primia_tpu_torch.nn.core import Conv, Norm, bn_fold
+from primia_tpu_torch.ops.cuda_clahe import div
+from primia_tpu_torch.ops.image import clahe
+
+_MODEL, _DATA, _DEALER = 0, 1, 2
+
+
+def _stream(device, *path: int) -> torch.Generator:
+    """An independent generator on ``device`` for the stream ``path``."""
+    s = int(np.random.SeedSequence(list(path)).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def folded_weights(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's weights as its owner shares them, by module name: conv
+    ``weight``; batch norm folded to ``scale`` and ``offset``; the fc's
+    ``weight`` and ``bias``. All float32."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, Conv):
+            out[pre + "weight"] = m.weight.detach().float()
+        elif isinstance(m, Norm):
+            f = bn_fold(m.weight.detach(), m.bias.detach(), m.running_mean, m.running_var,
+                        m.eps)
+            out[pre + "scale"], out[pre + "offset"] = f["scale"], f["offset"]
+        elif isinstance(m, nn.Linear):
+            out[pre + "weight"] = m.weight.detach().float()
+            out[pre + "bias"] = m.bias.detach().float()
+    return out
+
+
+def _conv(E: MpcEngine, P: Dict[str, AShare], conv: Conv, name: str, x: AShare) -> AShare:
+    return E.conv2d(x, P[name + ".weight"], conv.stride, conv.padding)
+
+
+def _affine(E: MpcEngine, P: Dict[str, AShare], name: str, x: AShare) -> AShare:
+    return E.affine(x, P[name + ".scale"], P[name + ".offset"])
+
+
+def basic_block_forward(E: MpcEngine, P: Dict[str, AShare], block: nn.Module, pre: str,
+                        x: AShare) -> AShare:
+    """``primia_tpu/nn/resnet.py:_basic_block_forward`` in share space;
+    ``pre`` names the block's weights in ``P`` (``"layer2.0."``)."""
+    out = _affine(E, P, pre + "bn1", _conv(E, P, block.conv1, pre + "conv1", x))
+    out = E.relu(out)
+    out = _affine(E, P, pre + "bn2", _conv(E, P, block.conv2, pre + "conv2", out))
+    identity = x
+    if block.down_conv is not None:
+        identity = _affine(E, P, pre + "down_bn",
+                           _conv(E, P, block.down_conv, pre + "down_conv", x))
+    return E.relu(E.add(out, identity))
+
+
+def resnet_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: AShare,
+                   swap_pool_relu: bool) -> AShare:
+    """``primia_tpu/nn/resnet.py:resnet_forward`` in share space: x is a
+    (2, B, C, H, W) sharing, the result the logits' sharing."""
+    out = _affine(E, P, "bn1", _conv(E, P, model.conv1, "conv1", x))
+
+    def stem_pool(t):
+        if model.pooling == "max":
+            return E.max_pool(t, window=3, stride=2, padding=1)
+        return E.avg_pool(t, window=3, stride=2, padding=1)
+
+    out = E.relu(stem_pool(out)) if swap_pool_relu else stem_pool(E.relu(out))
+    for li in range(model.num_layers):
+        for bi, block in enumerate(getattr(model, f"layer{li + 1}")):
+            out = basic_block_forward(E, P, block, f"layer{li + 1}.{bi}.", out)
+    win = model.input_size // 32
+    out = E.flatten(E.avg_pool(out, window=win, stride=win))
+    return E.linear(out, P["fc.weight"], P["fc.bias"])
+
+
+def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
+                            precision_fractional: int = fixed.DEFAULT_FRAC_BITS,
+                            protocol: str = "fss",
+                            batch_tile: Optional[int] = None) -> Callable:
+    """Returns ``predict(images_u8) -> logits`` over secret shares, called
+    as the plain ``train/steps.py:build_predict_step``'s: (B, R, R, C)
+    uint8 NHWC images in, (B, num_classes) float32 logits on ``device``
+    out.
+
+    Each call draws its own data-owner and dealer streams, numbered by the
+    calls before it. ``batch_tile``: run the share-space forward
+    ``batch_tile`` images at a time, each tile with its own streams; the
+    tail is padded with copies of the first image and sliced off."""
+    if getattr(args, "normalization", "batch") == "group" or any(
+            isinstance(m, Norm) and m.kind == "group" for m in model.modules()):
+        raise NotImplementedError(
+            "encrypted inference of normalization = group needs private group "
+            "norm (mpc/functions.py), which is not ported yet: ROADMAP, queue 1, slice 3")
+    device = torch.device(device)
+    check_protocol(protocol)
+    frac = precision_fractional
+    use_clahe = bool(args.clahe)
+    swap = model.pooling == "max"  # max pooling commutes with relu: pool first
+    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device).reshape(1, -1, 1, 1)
+    std_t = torch.as_tensor(np.asarray(std, np.float32), device=device).reshape(1, -1, 1, 1)
+    model.eval()
+    weights = {k: v.to(device) for k, v in folded_weights(model).items()}
+    shared = encode_and_share(_stream(device, _MODEL), weights, frac)
+    calls = itertools.count()
+
+    @torch.inference_mode()
+    def forward_tile(call: int, idx: int, imgs: torch.Tensor) -> torch.Tensor:
+        # the data owner: preprocess in plaintext, then share
+        x = div(imgs.permute(0, 3, 1, 2).float(), 255.0)
+        if use_clahe:
+            x = clahe(x, clip_limit=1.0, tiles=8, channels_first=True)
+        x = (x - mean_t) / std_t
+        xs = S.share(_stream(device, _DATA, call, idx), fixed.encode(x, frac))
+        E = MpcEngine(MpcContext(_stream(device, _DEALER, call, idx), frac, protocol))
+        return reveal_and_decode(resnet_forward(E, shared, model, xs, swap), frac).float()
+
+    def predict(images_u8) -> torch.Tensor:
+        imgs = images_u8 if isinstance(images_u8, torch.Tensor) else torch.from_numpy(
+            np.array(images_u8))  # a copy: a cached data set is a read-only memory map
+        imgs = imgs.to(device)
+        B = imgs.shape[0]
+        call = next(calls)
+        if batch_tile is None or batch_tile >= B:
+            return forward_tile(call, 0, imgs)
+        pad = (-B) % batch_tile
+        if pad:
+            imgs = torch.cat([imgs, imgs[:1].expand(pad, *imgs.shape[1:])])
+        outs = [forward_tile(call, i, t) for i, t in enumerate(imgs.split(batch_tile))]
+        return torch.cat(outs)[:B]
+
+    return predict

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from primia_tpu_torch.ops import cuda_clahe, cuda_tent
+from primia_tpu_torch.mpc import compare, ring_ops
+from primia_tpu_torch.mpc import shares as S
+from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
 from primia_tpu_torch.ops.image import (_clahe_channels, clahe, rgb_to_lab_u8, warp_affine,
                                         warp_dense)
 
@@ -154,3 +156,89 @@ def test_tent_kernels_reject_bad_operands(cuda_device):
         cuda_tent.tent_bilinear(planes, ys, xs[:1])
     with pytest.raises(ValueError):
         cuda_tent.tent_bilinear(planes, ys, xs.cpu())
+
+
+# ------------------------------------------- the FSS sign kernel K4 and ring products
+
+def _dcf_operands(n, device, seed=13):
+    """int32 words, as the kernel takes them: seeds (2, n, 4), 31-bit
+    alpha and x, c in {0, 1}."""
+    rng = np.random.default_rng(seed)
+    words = lambda shape, high: torch.from_numpy(  # noqa: E731
+        rng.integers(0, high, shape, dtype=np.uint64).astype(np.uint32).view(np.int32))
+    return tuple(t.to(device) for t in (words((2, n, 4), 1 << 32), words((n,), 1 << 31),
+                                        words((n,), 2), words((n,), 1 << 31)))
+
+
+# the ragged size and the largest call at batch 1 (the stem max-pool's
+# first round at 224 px)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 802_816])
+def test_dcf_sign_matches_plain(cuda_device, n):
+    seeds, alpha, c, x = _dcf_operands(n, cuda_device)
+    before = cuda_dcf.launches["dcf_sign"]
+    got = cuda_dcf.dcf_sign(seeds, alpha, c, x)
+    assert cuda_dcf.launches["dcf_sign"] == before + 1
+    torch.testing.assert_close(got, cuda_dcf.dcf_sign_plain(seeds, alpha, c, x), rtol=0, atol=0)
+    a, xv = alpha.long(), x.long()
+    want = torch.where(xv < a, 1 - 2 * c.long(), torch.zeros_like(a))
+    torch.testing.assert_close(got.sum(0), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_dcf_sign_boundary_points(cuda_device):
+    """x == alpha (strict <), x = 0, alpha = 0, the domain's ends."""
+    alpha = torch.tensor([5, 0, (1 << 31) - 1, 7, 7], dtype=torch.int32, device=cuda_device)
+    x = torch.tensor([5, 0, 0, 6, 8], dtype=torch.int32, device=cuda_device)
+    c = torch.tensor([0, 1, 0, 1, 0], dtype=torch.int32, device=cuda_device)
+    seeds = _dcf_operands(5, cuda_device)[0]
+    got = cuda_dcf.dcf_sign(seeds, alpha, c, x)
+    torch.testing.assert_close(got, cuda_dcf.dcf_sign_plain(seeds, alpha, c, x), rtol=0, atol=0)
+    assert got.sum(0).tolist() == [0, 0, 1, -1, 0]
+
+
+@pytest.mark.cuda
+def test_dcf_sign_rejects_bad_operands_on_the_card(cuda_device):
+    seeds, alpha, c, x = _dcf_operands(8, cuda_device)
+    with pytest.raises(ValueError):
+        cuda_dcf.dcf_sign(seeds, alpha, c.cpu(), x)
+    with pytest.raises(ValueError):
+        cuda_dcf.dcf_sign(seeds.long(), alpha, c, x)
+
+
+def _ring(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, shape, dtype=np.int64,
+                                         endpoint=True))
+
+
+# the stem conv at 224 px, batch 1, and a layer4 3x3 conv (512 -> 512 at 7x7)
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs,ws,stride,pad", [((1, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+                                               ((1, 512, 7, 7), (512, 512, 3, 3), 1, 1)],
+                         ids=["stem", "layer4"])
+def test_limb_ring_conv2d_on_the_card_equals_cpu_int64(cuda_device, xs, ws, stride, pad):
+    x, w = _ring(xs, 14), _ring(ws, 15)
+    got = ring_ops.ring_conv2d(x.to(cuda_device), w.to(cuda_device), stride, pad).cpu()
+    torch.testing.assert_close(got, ring_ops.ring_conv2d(x, w, stride, pad), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 3), (3, 4608, 1536)], ids=["fc_batch1", "wide"])
+def test_limb_ring_matmul_on_the_card_equals_cpu_int64(cuda_device, shape):
+    M, K, N = shape
+    a, b = _ring((M, K), 16), _ring((K, N), 17)
+    got = ring_ops.ring_matmul(a.to(cuda_device), b.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, a @ b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_sign_shares_on_the_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    v = torch.randint(-(1 << 30), (1 << 30) + 1, (4, 64, 7, 7), device=cuda_device,
+                      generator=gen)
+    v.view(-1)[:4] = torch.tensor([0, -1, 1 << 30, -(1 << 30)], device=cuda_device)
+    before = cuda_dcf.launches["dcf_sign"]
+    sign = compare.sign_shares(gen, S.share(gen, v))
+    assert cuda_dcf.launches["dcf_sign"] == before + 1
+    torch.testing.assert_close(S.reconstruct(sign), (v < 0).long(), rtol=0, atol=0)

@@ -210,7 +210,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     scanned = {str(f.relative_to(ROOT)) for f in files}
     assert {f"primia_tpu_torch/{m}.py" for m in (
         "ops/cuda_tent", "ops/augment", "train/losses", "train/optim", "train/lr",
-        "train/monitor", "train/loop", "cli/train")} <= scanned
+        "train/monitor", "train/loop", "cli/train", "mpc/fixed", "mpc/shares",
+        "mpc/ring_ops", "mpc/beaver", "mpc/prg", "mpc/dcf", "mpc/compare", "mpc/engine",
+        "mpc/inference", "ops/cuda_dcf")} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "primia_tpu")]
     assert bad == []
