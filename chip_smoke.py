@@ -64,11 +64,29 @@ Phases, each reported on its own line; any failure exits nonzero:
                   reports) or the bytes, whichever is larger; no PyTorch
                   call computes a DCF. Then the kernel's SASS opcode counts
                   (cuobjdump -sass; the level loop is not unrolled).
-9. ring           the card's byte-limb ring conv (int8 torch._int_mm) against
+9. wgrad          K7, the 3x3/s1/p1 weight gradient of the opt-in train path,
+                  against its plain version (within 1e-3 of max |dW|) at the
+                  train step's two shapes (layer2: 200 x 128 x 28 x 28, layer3:
+                  200 x 256 x 14 x 14) and a ragged one; times as above, bound
+                  from the bf16 tensor-core operations at 989 TFLOP/s or the
+                  bytes, library_ms ``torch.nn.grad.conv2d_weight`` (cuDNN).
+10. bn            K8, both BN channel sums, against their plain versions
+                  (within 1e-5 of the sums of absolute values) at the stem's
+                  200 x 64 x 112 x 112, layer4's 200 x 512 x 7 x 7 and a ragged
+                  shape; library_ms ``torch.batch_norm_stats`` and
+                  ``torch.batch_norm_backward_reduce``.
+11. noise         K5, the Gaussian-noise kernel, on its own path: the JAX
+                  package calls it from no entry point, so its path is one
+                  call at the canonical train batch (200 x 3 x 224 x 224 f32)
+                  with the counters set to 0 around it; its uniforms bit for
+                  bit against the plain version's, the output within 1e-5,
+                  the noise's moments, a ragged bf16 case; bound from the
+                  bytes, the Philox multiplies or the special functions.
+12. ring          the card's byte-limb ring conv (int8 torch._int_mm) against
                   the CPU's native int64 conv, bit for bit, at the stem conv
                   at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
                   layer4 3x3 conv (512->512 at 7x7); both times.
-10. encrypt       slice 3's main path: the inference CLI with
+13. encrypt       slice 3's main path: the inference CLI with
                   --encrypted_inference (fss) on cuda, in-process, on 8 of the
                   serve phase's DICOMs with its checkpoint at --batch_size 4,
                   counters set to 0 just before and read just after (K4 21
@@ -80,24 +98,41 @@ Phases, each reported on its own line; any failure exits nonzero:
                   batch 1 and 4 (p50/p75 over 5 batches after 1 warm-up, s per
                   image, peak memory, device busy ms, idle share and device ms
                   by category from the profiler over one batch).
-11. kernels       one JSON line with each kernel's error, times, bound and
+14. train_optin  slice 2b's main path: the train CLI as in phase 7 under the
+                  JAX package's switches PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1,
+                  counters set to 0 just before and read just after (K7 6
+                  times a step, each K8 sum 20 times, K1 and CLAHE as in
+                  phase 7); the wrappers' layout copies; 24 timed steps of
+                  the switched step beside 24 of the default one; one bf16
+                  step with augmentation and mixup off, switched against
+                  default from the same weights and batch (loss within 1e-2
+                  relative; the fc's gradients within 2e-2 of max; K7's conv
+                  weight gradients within 2e-2 of max; under all three
+                  switches the BN running statistics within 2e-2, and the
+                  conv and BN gamma/beta gradients no further from an f32
+                  step's than 1.5 times the default bf16 step's).
+15. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
-                  the encrypted CLI for K4; every path's counts beside them,
-                  and a kernel launched no time on its path fails the run),
-                  the card's name and power limit, and as the last line
-                  {"ok": true, "device": {...}}.
+                  the encrypted CLI for K4, the switched train CLI for K7 and
+                  K8, the noise phase for K5; every path's counts beside
+                  them, and a kernel launched no time on its path fails the
+                  run), the card's name and power limit, and as the last
+                  line {"ok": true, "device": {...}}.
 
 Nothing here imports JAX or the JAX package. Work files go to
 ``build/chip_smoke/``, and the profile tables to ``--profile_out`` (default
-``build/chip_smoke/profile.txt``; the train step's and the encrypted
-predict's beside it, with ``.train`` or ``.encrypt`` before the suffix).
+``build/chip_smoke/profile.txt``; the train step's, the encrypted
+predict's and the default and switched steps of phase 14 beside it, with
+``.train``, ``.encrypt`` or ``.train_optin.{default,switched}`` before the
+suffix). Phases run in the order 1-5, 8-12, 6, 13, 7, 14.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -118,20 +153,39 @@ TIMED_STEPS = 24
 CLASSES = ("bacterial pneumonia", "normal", "viral pneumonia")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 KERNELS = {
     "clahe_lut": {"replaces": "primia_tpu/ops/pallas_clahe.py:83", "path": "train",
-                  "kernel": "clahe_lut_kernel", "source": "primia_tpu_torch/csrc/clahe.cu"},
+                  "kernel": ("clahe_lut_kernel",), "source": "primia_tpu_torch/csrc/clahe.cu"},
     "clahe_apply": {"replaces": "primia_tpu/ops/pallas_clahe.py:148", "path": "train",
-                    "kernel": "clahe_apply_kernel", "source": "primia_tpu_torch/csrc/clahe.cu"},
+                    "kernel": ("clahe_apply_kernel",), "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
-                  "kernel": "tent_rows_kernel", "source": "primia_tpu_torch/csrc/tent.cu"},
+                  "kernel": ("tent_rows_kernel",), "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
     # (PRIMIA_WARP_TWOPASS=0) or the affine ranges are not two-pass safe
     "tent_bilinear": {"replaces": "primia_tpu/ops/pallas_tent.py:54",
-                      "path": "train_twopass0", "kernel": "tent_bilinear_kernel",
+                      "path": "train_twopass0", "kernel": ("tent_bilinear_kernel",),
                       "source": "primia_tpu_torch/csrc/tent.cu"},
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
-                 "kernel": "dcf_sign_kernel", "source": "primia_tpu_torch/csrc/dcf.cu"},
+                 "kernel": ("dcf_sign_kernel",), "source": "primia_tpu_torch/csrc/dcf.cu"},
+    # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
+    # function's time counts each kernel named here (K7's and K8's second,
+    # reducing pass included)
+    "conv3x3_wgrad": {"replaces": "primia_tpu/ops/pallas_wgrad.py:122", "path": "train_optin",
+                      "kernel": ("conv3x3_wgrad_kernel", "conv3x3_wgrad_reduce_kernel"),
+                      "source": "primia_tpu_torch/csrc/wgrad.cu"},
+    "bn_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:59", "path": "train_optin",
+                "kernel": ("bn_sums_kernel", "bn_partials_reduce_kernel"),
+                "source": "primia_tpu_torch/csrc/bn.cu"},
+    "bn_grad_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:75", "path": "train_optin",
+                     "kernel": ("bn_grad_sums_kernel", "bn_partials_reduce_kernel"),
+                     "source": "primia_tpu_torch/csrc/bn.cu"},
+    # K5 is on no path of either package (only the JAX package's own test
+    # calls it), so its path is its own phase: one call at the canonical
+    # train batch, as the augmentation's GaussNoise would make it
+    "gaussian_noise": {"replaces": "primia_tpu/ops/pallas_kernels.py:145", "path": "noise",
+                       "kernel": ("gaussian_noise_kernel",),
+                       "source": "primia_tpu_torch/csrc/noise.cu"},
 }
 # K4's work (csrc/dcf.cu): a Threefry-2x32-20 block's 20 rotations (funnel
 # shifts) and 20 xors issue only on an SM's 64 INT32 lanes; its adds may
@@ -201,8 +255,8 @@ def device_ms_by_category(avgs, iters):
     the device-side rows (kernels and copies) by category."""
     from torch.autograd import DeviceType
 
-    cats = {"warp_kernels": 0.0, "clahe_kernels": 0.0, "convolution": 0.0, "memcpy": 0.0,
-            "other": 0.0}
+    cats = {"warp_kernels": 0.0, "clahe_kernels": 0.0, "wgrad_kernel": 0.0, "bn_kernels": 0.0,
+            "convolution": 0.0, "memcpy": 0.0, "other": 0.0}
     for e in avgs:
         if e.device_type != DeviceType.CUDA:
             continue
@@ -211,6 +265,12 @@ def device_ms_by_category(avgs, iters):
             cat = "warp_kernels"
         elif "clahe" in k:
             cat = "clahe_kernels"
+        # K7 and K8 before the generic match, which would take "*wgrad*"
+        elif "conv3x3_wgrad" in k:
+            cat = "wgrad_kernel"
+        elif any(n in k for n in ("bn_sums_kernel", "bn_grad_sums_kernel",
+                                  "bn_partials_reduce_kernel")):
+            cat = "bn_kernels"
         elif any(w in k for w in ("xmma", "cudnn", "conv", "gemm", "Nhwc", "Nchw", "cutlass",
                                   "wgrad", "dgrad", "fprop", "implicit")):
             cat = "convolution"
@@ -222,33 +282,43 @@ def device_ms_by_category(avgs, iters):
     return cats
 
 
-def kernel_device_ms(avgs, kernel_name):
-    """Device milliseconds per launch of a kernel from profiler averages,
-    or None where the trace has no device time for it."""
-    for e in avgs:
-        if kernel_name in e.key and e.count and e.device_time_total > 0:
-            return e.device_time_total / e.count * 1e-3
-    return None
+def function_device_ms(avgs, kernel_names, calls):
+    """Device milliseconds per call of a function whose ``calls`` calls
+    launched the kernels named in ``kernel_names`` (its kernel and any
+    second pass), from profiler averages; None where the trace has no
+    device time for them."""
+    total = sum(e.device_time_total for e in avgs
+                if e.count and any(n in e.key for n in kernel_names))
+    return total / calls * 1e-3 if total > 0 else None
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, peak_ops=PEAK_F32_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def reset_launches():
-    from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
+def _counters():
+    from primia_tpu_torch.ops import (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent,
+                                      cuda_wgrad)
 
-    for counts in (cuda_clahe.launches, cuda_tent.launches, cuda_dcf.launches):
+    return (cuda_clahe.launches, cuda_tent.launches, cuda_dcf.launches, cuda_wgrad.launches,
+            cuda_bn.launches, cuda_kernels.launches)
+
+
+def reset_launches():
+    for counts in _counters():
         for name in counts:
             counts[name] = 0
 
 
 def read_launches():
-    from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
-    return {**cuda_clahe.launches, **cuda_tent.launches, **cuda_dcf.launches}
+
+def idle_launches(**nonzero):
+    """Every counter at 0 but those given."""
+    return {**{k: 0 for k in read_launches()}, **nonzero}
 
 
 def phase_build():
@@ -257,7 +327,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    for name in ("clahe", "tent", "dcf"):
+    for name in ("clahe", "tent", "dcf", "wgrad", "bn", "noise"):
         check(name in libs and libs[name].is_file(), f"{name}.cu did not build")
     say("build", seconds=f"{secs:.3f}", libraries=",".join(sorted(libs)))
 
@@ -302,7 +372,7 @@ def phase_kernels(torch, seed):
         for name, (kern, plain, (bound_ms, bound_by)) in timings.items():
             call_ms = cuda_ms(torch, kern, 100)
             plain_ms = cuda_ms(torch, plain, 20)
-            dev_ms = kernel_device_ms(profile(torch, kern, 20), KERNELS[name]["kernel"])
+            dev_ms = function_device_ms(profile(torch, kern, 20), KERNELS[name]["kernel"], 20)
             say(name, shape="x".join(map(str, shape)),
                 kernel_ms="not measured" if dev_ms is None else f"{dev_ms:.6f}",
                 call_ms=f"{call_ms:.6f}",
@@ -393,7 +463,7 @@ def phase_tent(torch, seed):
             call_ms = cuda_ms(torch, kern, 50)
             plain_ms = cuda_ms(torch, plain, 5)
             library_ms = cuda_ms(torch, lib, 50)
-            dev_ms = kernel_device_ms(profile(torch, kern, 20), KERNELS[name]["kernel"])
+            dev_ms = function_device_ms(profile(torch, kern, 20), KERNELS[name]["kernel"], 20)
             say(name, shape=shape, case=case, max_abs_err=err,
                 kernel_ms="not measured" if dev_ms is None else f"{dev_ms:.6f}",
                 call_ms=f"{call_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
@@ -487,8 +557,8 @@ def phase_dcf(torch, seed, sm_max_mhz):
         bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
         call_ms = cuda_ms(torch, lambda: cd.dcf_sign(*ops), 20)
         plain_ms = cuda_ms(torch, lambda: cd.dcf_sign_plain(*ops), 3, warmup=1)
-        dev_ms = kernel_device_ms(profile(torch, lambda: cd.dcf_sign(*ops), 10),
-                                  KERNELS["dcf_sign"]["kernel"])
+        dev_ms = function_device_ms(profile(torch, lambda: cd.dcf_sign(*ops), 10),
+                                    KERNELS["dcf_sign"]["kernel"], 10)
         say("dcf_sign", n=n, case=name, max_abs_err=err,
             kernel_ms="not measured" if dev_ms is None else f"{dev_ms:.6f}",
             call_ms=f"{call_ms:.6f}", plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}",
@@ -503,8 +573,192 @@ def phase_dcf(torch, seed, sm_max_mhz):
     return rec
 
 
+def timed_record(torch, name, kern, plain, library, bnd, iters=20, plain_iters=5):
+    """Times of ``kern`` (one call of the port's function), its plain
+    version and the library yardstick (None: there is none), beside the
+    bound ``bnd`` = (bound ms, "bytes" or "operations"): kernel ms
+    (profiler, every kernel the call launches), call ms (CUDA events),
+    plain ms, library ms."""
+    call_ms = cuda_ms(torch, kern, iters)
+    plain_ms = cuda_ms(torch, plain, plain_iters, warmup=1)
+    library_ms = None if library is None else cuda_ms(torch, library, iters)
+    dev_ms = function_device_ms(profile(torch, kern, 10), KERNELS[name]["kernel"], 10)
+    bound_ms, bound_by = bnd
+    return dict(ms=call_ms if dev_ms is None else dev_ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                kernel_ms="not measured" if dev_ms is None else dev_ms)
+
+
+def _say_times(name, r, **kw):
+    fmt = lambda v: v if isinstance(v, str) else ("none" if v is None else f"{v:.6f}")  # noqa: E731
+    say(name, **kw, **{k: fmt(r[k]) for k in ("kernel_ms", "call_ms", "plain_ms", "library_ms",
+                                               "bound_ms")}, bound_by=r["bound_by"],
+        x_bound=f"{r['ms'] / r['bound_ms']:.3f}")
+
+
+def mean_record(records):
+    out = {k: sum(r[k] for r in records) / len(records)
+           for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+    libs = [r["library_ms"] for r in records]
+    out["library_ms"] = None if None in libs else sum(libs) / len(libs)
+    out["bound_by"] = records[0]["bound_by"]
+    return out
+
+
+def phase_wgrad(torch, seed):
+    """Phase 9: K7 against its plain version on the card, at the train step's two
+    shapes (layer2's 128 channels at 28x28 and layer3's 256 at 14x14, batch
+    200) and a ragged one (B*H*W not a multiple of the 32-pixel step, 3*ci
+    not of the 128-row tile). Within 1e-3 of max |dW| (the JAX tests'
+    limit): both sum the same bf16 products in float32, in other orders.
+    Returns the record: the mean of the two train-step shapes."""
+    from primia_tpu_torch.ops import cuda_wgrad as cw
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's float32 products
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def operand(*shape):
+        t = torch.randn(shape, generator=g, device=dev)
+        return t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    records, worst = [], 0.0
+    for B, ci, co, H, W in ((TRAIN_BATCH, 128, 128, 28, 28), (TRAIN_BATCH, 256, 256, 14, 14),
+                            (3, 64, 512, 9, 11)):
+        x, gy = operand(B, ci, H, W), operand(B, co, H, W)
+        got = cw.conv3x3_wgrad(x, gy)
+        torch.cuda.synchronize()
+        want = cw.conv3x3_wgrad_plain(x, gy)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-3 * scale, f"conv3x3_wgrad differs from plain at {(B, ci, co, H, W)}: "
+              f"max |d| {err}, max |dW| {scale}")
+        worst = max(worst, err)
+        lib = lambda: torch.nn.grad.conv2d_weight(x, (co, ci, 3, 3), gy, padding=1)  # noqa: E731
+        lib_err = float((lib().float() - want).abs().max())
+        flops = 2 * 9 * ci * co * B * H * W
+        r = timed_record(torch, "conv3x3_wgrad", lambda: cw.conv3x3_wgrad(x, gy),
+                         lambda: cw.conv3x3_wgrad_plain(x, gy), lib,
+                         bound(2 * (x.numel() + gy.numel()) + 4 * co * ci * 9, flops,
+                               PEAK_BF16_TENSOR_OPS_PER_S))
+        _say_times("conv3x3_wgrad", r, shape=f"B{B}:ci{ci}:co{co}:{H}x{W}", max_abs_err=err,
+                   max_abs_dw=scale, library_max_abs_diff=lib_err, gflop=flops / 1e9,
+                   tflop_per_s=f"{flops / (r['ms'] * 1e-3) / 1e12:.2f}",
+                   splits=cw.split_pixels(B * H * W, ci, co)[0])
+        if B == TRAIN_BATCH:
+            records.append(r)
+    return {**mean_record(records), "max_abs_err": worst}
+
+
+def phase_bn(torch, seed):
+    """Phase 10: K8 (both sums) against the plain versions on the card, at the train
+    step's largest and smallest BN activations (the stem's 64 x 112 x 112
+    and layer4's 512 x 7 x 7, batch 200) and a ragged (3, 24, 5, 7). Each
+    sum within 1e-5 of the same sum of absolute values (float32 sums of
+    the same bf16 values in other orders). Returns the two records, each
+    the mean of the two train-step shapes."""
+    from primia_tpu_torch.ops import cuda_bn as cb
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def operand(shape, scale, shift):
+        t = torch.randn(shape, generator=g, device=dev) * scale + shift
+        return t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    records = {"bn_sums": [], "bn_grad_sums": []}
+    worst = {"bn_sums": 0.0, "bn_grad_sums": 0.0}
+    for shape in ((TRAIN_BATCH, 64, 112, 112), (TRAIN_BATCH, 512, 7, 7), (3, 24, 5, 7)):
+        x, gy = operand(shape, 1.0, 0.5), operand(shape, 0.1, 0.05)
+        C = shape[1]
+        mean, invstd = torch.batch_norm_stats(x, 1e-5)
+        weight = torch.ones(C, device=dev)
+        cases = (
+            ("bn_sums", lambda: cb.channel_sums(x), lambda: cb.channel_sums_plain(x),
+             lambda: cb.channel_sums_plain(x.abs()), lambda: torch.batch_norm_stats(x, 1e-5),
+             2 * x.numel() + 8 * C, 3 * x.numel()),
+            ("bn_grad_sums", lambda: cb.grad_channel_sums(gy, x),
+             lambda: cb.grad_channel_sums_plain(gy, x),
+             lambda: cb.grad_channel_sums_plain(gy.abs(), x.abs()),
+             lambda: torch.batch_norm_backward_reduce(gy, x, mean, invstd, weight, True, True,
+                                                      True),
+             4 * x.numel() + 8 * C, 3 * x.numel()))
+        for name, kern, plain, magnitude, lib, nbytes, nops in cases:
+            got = kern()
+            torch.cuda.synchronize()
+            err = 0.0
+            for a, b, m in zip(got, plain(), magnitude()):
+                d = (a - b).abs()
+                check(bool((d <= 1e-5 * m + 1e-6).all()),
+                      f"{name} differs from plain at {shape}: max |d| {float(d.max())}")
+                err = max(err, float(d.max()))
+            worst[name] = max(worst[name], err)
+            r = timed_record(torch, name, kern, plain, lib, bound(nbytes, nops))
+            _say_times(name, r, shape="x".join(map(str, shape)), max_abs_err=err,
+                       gb_per_s=f"{nbytes / (r['ms'] * 1e-3) / 1e9:.1f}")
+            if shape[0] == TRAIN_BATCH:
+                records[name].append(r)
+    return {n: {**mean_record(rs), "max_abs_err": worst[n]} for n, rs in records.items()}
+
+
+# K5's work an element besides its 8 bytes (csrc/noise.cu): Philox-4x32-10's
+# 10 rounds of two 32x32-bit products, each a high and a low half, on the
+# INT32 multiplier (64 a clock an SM); log, sqrt and cos each need at least
+# one special-function operation (MUFU, 16 a clock an SM)
+NOISE_IMUL_PER_ELEMENT = 40
+NOISE_MUFU_PER_ELEMENT = 3
+
+
+def phase_noise(torch, seed, sm_max_mhz):
+    """Phase 11: K5 on its own path and against its plain version on the card: one
+    call at the canonical train batch (200 x 3 x 224 x 224 float32) with
+    the counters set to 0 around it; the uniforms bit for bit; the output
+    within 1e-5 (sigma 0.1: the two differ at most in the last bits of
+    log, cos and sqrt); the noise's mean and standard deviation; rows
+    distinct; a ragged bfloat16 case. Returns (record, launches)."""
+    from primia_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sigma, key = 0.1, seed + 0x5EED
+    x = torch.rand((TRAIN_BATCH, 3, RES, RES), generator=g, device=dev)
+    reset_launches()
+    out = ck.add_gaussian_noise(x, key, sigma)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == idle_launches(gaussian_noise=1), f"noise path launches {launches}")
+    B, n = x.shape[0], x.numel() // x.shape[0]
+    u1, u2 = ck.noise_uniforms(x, key)
+    p1, p2 = ck.noise_uniforms_plain(B, n, key, dev)
+    check(torch.equal(u1, p1) and torch.equal(u2, p2), "K5's uniforms differ from plain")
+    err = float((out - ck.add_gaussian_noise_plain(x, key, sigma)).abs().max())
+    check(err <= 1e-5, f"gaussian_noise differs from plain: max |d| {err}")
+    z = ((out - x) / sigma).double()
+    zm, zs = float(z.mean()), float(z.std())
+    check(abs(zm) < 0.01 and abs(zs - 1.0) < 0.01 and not torch.equal(out[0], out[1]),
+          f"gaussian_noise: noise mean {zm}, std {zs}, or rows equal")
+    xb = torch.rand((5, 7, 13), generator=g, device=dev).to(torch.bfloat16)
+    ob = ck.add_gaussian_noise(xb, key, sigma)
+    torch.cuda.synchronize()
+    db = (ob.float() - ck.add_gaussian_noise_plain(xb, key, sigma).float()).abs()
+    check(bool((db <= 2.0 ** -7 * ob.float().abs() + 1e-6).all()),
+          f"gaussian_noise (bf16, ragged) more than 1 ulp from plain: {float(db.max())}")
+    nel = x.numel()
+    clock = sm_max_mhz * 1e6
+    t_imul = nel * NOISE_IMUL_PER_ELEMENT / (132 * 64 * clock) * 1e3
+    t_mufu = nel * NOISE_MUFU_PER_ELEMENT / (132 * 16 * clock) * 1e3
+    t_ops, t_bytes = max(t_imul, t_mufu), 8 * nel / PEAK_BYTES_PER_S * 1e3
+    r = timed_record(torch, "gaussian_noise", lambda: ck.add_gaussian_noise(x, key, sigma),
+                     lambda: ck.add_gaussian_noise_plain(x, key, sigma), None,
+                     (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+                     plain_iters=2)
+    _say_times("gaussian_noise", r, shape="x".join(map(str, x.shape)), max_abs_err=err,
+               uniforms_equal=True, noise_mean=zm, noise_std=zs, imul_bound_ms=f"{t_imul:.6f}",
+               mufu_bound_ms=f"{t_mufu:.6f}", bf16_ragged_max_abs_diff=float(db.max()))
+    return {**r, "max_abs_err": err}, launches
+
+
 def phase_ring(torch, seed):
-    """Phase 9: the card's byte-limb ring conv against the CPU's int64."""
+    """Phase 12: the card's byte-limb ring conv against the CPU's int64."""
     from primia_tpu_torch.mpc import ring_ops
     from primia_tpu_torch.mpc.shares import rand_ring
 
@@ -550,7 +804,7 @@ def encrypt_ms_by_category(avgs, gemm_kernels):
 
 
 def phase_encrypt(torch, seed, work, profile_out):
-    """Phase 10: the encrypted inference CLI on the card, its logits
+    """Phase 13: the encrypted inference CLI on the card, its logits
     against the plain predict step, the tiled form, and timings. Returns
     the launch counts of the CLI's run."""
     import numpy as np
@@ -610,8 +864,8 @@ def phase_encrypt(torch, seed, work, profile_out):
         extra = [] if tile is None else ["--mpc_batch_tile", str(tile)]
         preds, launches, cli_s = run_cli(extra)
         forwards = n_batches * (1 if tile is None else -(-ENCRYPT_BATCH // tile))
-        expect = {"dcf_sign": SIGNS_PER_FORWARD * forwards, "clahe_lut": forwards,
-                  "clahe_apply": forwards, "tent_rows": 0, "tent_bilinear": 0}
+        expect = idle_launches(dcf_sign=SIGNS_PER_FORWARD * forwards, clahe_lut=forwards,
+                               clahe_apply=forwards)
         check(launches == expect, f"encrypted CLI (tile {tile}) launches {launches}, "
               f"expected {expect}")
         enc = build_encrypted_predict(model, args, mean, std, "cuda",
@@ -731,8 +985,8 @@ def phase_serve(torch, seed, work, profile_out):
     for name in cc.launches:
         check(launches[name] == n_batches,
               f"{name} launched {launches[name]} times for {n_batches} batches")
-    check(launches["tent_rows"] == launches["tent_bilinear"] == launches["dcf_sign"] == 0,
-          f"the serving path launched a warp or DCF kernel: {launches}")
+    check(launches == idle_launches(clahe_lut=n_batches, clahe_apply=n_batches),
+          f"the serving path launched a kernel other than CLAHE's: {launches}")
     say("serve", cli_seconds=f"{cli_s:.4f}", cli_img_per_s=f"{N_IMAGES / cli_s:.2f}",
         launches=json.dumps(launches), predictions=lines[1])
 
@@ -799,6 +1053,43 @@ def write_dataset(np, rng, root):
                 write_dicom(d / f"xray_{i:03d}.dcm", a)
 
 
+def time_steps(torch, np, run, phase, profile_out, tag):
+    """``TIMED_STEPS`` train steps ``run(i)`` after 3 warm-up steps: p50
+    and p75 of the host clock around each synchronised step, img/s, peak
+    memory, and from the profiler over 3 steps the device ms a step by
+    category and the idle share (the table goes beside ``profile_out``
+    with ``tag`` before the suffix). Returns (p50 ms, device ms by
+    category)."""
+    for i in range(3):
+        run(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_losses = [], []
+    for i in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_losses.append(run(i))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(bool(torch.isfinite(l)) for l in step_losses), f"{phase}: non-finite train loss")
+    q = np.percentile(step_ms, [50, 75])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_prof = 3
+    avgs = profile(torch, lambda: [run(i) for i in range(n_prof)], 1)
+    path = profile_out.with_name(profile_out.stem + tag + profile_out.suffix)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
+    cats = {k: v / n_prof for k, v in device_ms_by_category(avgs, 1).items()}
+    busy = sum(cats.values())
+    idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
+    say(phase, batch=TRAIN_BATCH, steps_timed=len(step_ms), step_ms_p50=f"{q[0]:.4f}",
+        step_ms_p75=f"{q[1]:.4f}", img_per_s_p50=f"{TRAIN_BATCH / (q[0] * 1e-3):.2f}",
+        device_busy_ms_per_step=f"{busy:.4f}", idle_share=idle,
+        peak_memory_gb=f"{peak_gb:.3f}", compute_dtype="bfloat16")
+    say(phase, device_ms_per_step=json.dumps({k: round(v, 6) for k, v in cats.items()}))
+    return q[0], cats
+
+
 def phase_train(torch, seed, work, profile_out):
     """Phase 7: the train CLI on the card, timed train steps, K2 on the
     train path, and one float32 step on the card against the CPU.
@@ -846,8 +1137,7 @@ def phase_train(torch, seed, work, profile_out):
     finally:
         os.chdir(cwd)
     (work / "train_cli.log").write_text(out.getvalue())
-    want = {"tent_rows": 4 * steps, "tent_bilinear": 0, "clahe_lut": steps,
-            "clahe_apply": steps, "dcf_sign": 0}
+    want = idle_launches(tent_rows=4 * steps, clahe_lut=steps, clahe_apply=steps)
     check(launches == want, f"train CLI launches {launches}, expected {want}")
     finals = sorted((work / "model_weights").glob("final_*.pt"))
     check(len(finals) == 1, f"train CLI wrote {len(finals)} final checkpoints")
@@ -879,33 +1169,7 @@ def phase_train(torch, seed, work, profile_out):
         b = batches[i % len(batches)]
         return step(gen, b.images, b.labels, b.mask, 1e-4)
 
-    for i in range(3):
-        run(i)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, step_losses = [], []
-    for i in range(TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_losses.append(run(i))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    check(all(bool(torch.isfinite(l)) for l in step_losses), "non-finite train loss")
-    q = np.percentile(step_ms, [50, 75])
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_prof = 3
-    avgs = profile(torch, lambda: [run(i) for i in range(n_prof)], 1)
-    train_profile = profile_out.with_name(profile_out.stem + ".train" + profile_out.suffix)
-    train_profile.parent.mkdir(parents=True, exist_ok=True)
-    train_profile.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
-    cats = {k: v / n_prof for k, v in device_ms_by_category(avgs, 1).items()}
-    busy = sum(cats.values())
-    idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
-    say("train", batch=TRAIN_BATCH, steps_timed=len(step_ms), step_ms_p50=f"{q[0]:.4f}",
-        step_ms_p75=f"{q[1]:.4f}", img_per_s_p50=f"{TRAIN_BATCH / (q[0] * 1e-3):.2f}",
-        device_busy_ms_per_step=f"{busy:.4f}", idle_share=idle,
-        peak_memory_gb=f"{peak_gb:.3f}", compute_dtype="bfloat16")
-    say("train", device_ms_per_step=json.dumps({k: round(v, 6) for k, v in cats.items()}))
+    time_steps(torch, np, run, "train", profile_out, ".train")
 
     # K2 on the train path: the dense warp as the joint bilinear gather
     os.environ["PRIMIA_WARP_TWOPASS"] = "0"
@@ -946,7 +1210,187 @@ def phase_train(torch, seed, work, profile_out):
           f"card vs CPU f32 step: loss {lg} vs {lc} (rel {rel}), BN stats max |d| {dstat}")
     say("train", cpu_check="ok", loss_cuda=lg, loss_cpu=lc, loss_rel_diff=rel,
         bn_stats_max_abs_diff=dstat)
-    return launches, k2
+    ctx = dict(ini=ini, root=root, run=run, imgs=imgs, labels=labels, mean=mean, std=std,
+               steps=steps)
+    return launches, k2, ctx
+
+
+SWITCHES = ("PRIMIA_PALLAS_WGRAD", "PRIMIA_PALLAS_BN", "PRIMIA_PALLAS_AUGMENT")
+K7_PER_STEP, K8_PER_STEP = 6, 20  # layer2's and layer3's s1 convs; every BN
+
+
+@contextlib.contextmanager
+def switches(*names):
+    """The JAX package's opt-in kernel switches: those named set to 1,
+    the others unset, for the block."""
+    old = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update({k: "1" for k in names})
+    try:
+        yield
+    finally:
+        for k in SWITCHES:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in old.items() if v is not None})
+
+
+class _GradRecorder:
+    """Stands in for the optimizer: keeps the gradients it is given."""
+
+    def __init__(self, model):
+        self.names, self.params = zip(*model.named_parameters())
+
+    def update(self, grads, lr):
+        self.grads = {n: g.detach().float().cpu() for n, g in zip(self.names, grads)}
+
+
+def phase_train_optin(torch, seed, work, profile_out, ctx):
+    """Phase 14: slice 2b's main path, the train step under the JAX
+    package's switches PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1: the train CLI as
+    in phase 7, counters set to 0 just before and read just after (K7 6
+    times a step, each K8 sum 20 times, K1 and CLAHE as before, K2 never:
+    the canonical affine ranges are two-pass safe, so the one-pass warp
+    is not reached); the layout copies the wrappers made; 24 timed steps
+    of the switched step beside 24 of the default one, on one model; then
+    one bfloat16 step with augmentation and mixup off from the same
+    weights and batch of 200, switched against default (loss within 1e-2
+    relative; the fc's weight and bias gradients within 2e-2 of their max;
+    under PRIMIA_PALLAS_WGRAD alone every conv weight gradient within 2e-2
+    of its max |dW|; under all three the BN running statistics within 2e-2
+    of their max). Under the BN switch the conv and BN gamma/beta
+    gradients are held to a float32 step's instead: no further from it, by
+    the largest share of a tensor's max |value| and by the l2 share, than
+    1.5 times the default bfloat16 step's distance from it. The BN
+    backward's dx differs from cuDNN's in its last bits, and a conv's
+    weight gradient in front of a BN is the small remainder of large
+    opposite sums, which such bits move by a large share (PERF.md, section
+    6); the float32 step separates that share from the switched path's own
+    error. Returns the CLI run's launch counts."""
+    import numpy as np
+
+    from primia_tpu_torch.cli import train as train_cli
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.ops import cuda_bn, cuda_wgrad
+    from primia_tpu_torch.train.steps import build_train_step
+
+    steps = ctx["steps"]
+    cli_dir = work / "optin"
+    cli_dir.mkdir()
+    argv = ["--config", str(ctx["ini"]), "--data_dir", str(ctx["root"] / "train"),
+            "--device", "cuda"]
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(cli_dir)
+    copies = (cuda_wgrad.layout_copies, cuda_bn.layout_copies)
+    try:
+        with switches(*SWITCHES):
+            reset_launches()
+            for c in copies:
+                c.update({k: 0 for k in c})
+            torch.manual_seed(seed)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+                best = train_cli.main(argv)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = read_launches()
+    finally:
+        os.chdir(cwd)
+    (work / "train_optin_cli.log").write_text(out.getvalue())
+    want = idle_launches(tent_rows=4 * steps, clahe_lut=steps, clahe_apply=steps,
+                         conv3x3_wgrad=K7_PER_STEP * steps, bn_sums=K8_PER_STEP * steps,
+                         bn_grad_sums=K8_PER_STEP * steps)
+    check(launches == want, f"switched train CLI launches {launches}, expected {want}")
+    check(len(list((cli_dir / "model_weights").glob("final_*.pt"))) == 1 and np.isfinite(best),
+          f"switched train CLI: best objective {best}, or no final checkpoint")
+    layout = {**{f"wgrad.{k}": v for k, v in copies[0].items()},
+              **{f"bn.{k}": v for k, v in copies[1].items()}}
+    say("train_optin", switches=",".join(SWITCHES), cli_seconds=f"{cli_s:.4f}",
+        launches=json.dumps(launches), layout_copies=json.dumps(layout), best_mcc_percent=best)
+
+    # the switched step beside the default one, on the same model, in turns
+    times = {}
+    for label, on in (("default", ()), ("switched", SWITCHES)):
+        with switches(*on):
+            times[label] = time_steps(torch, np, ctx["run"], f"train_optin.{label}",
+                                      profile_out, f".train_optin.{label}")
+    say("train_optin", switched_over_default_p50=f"{times['switched'][0] / times['default'][0]:.4f}")
+
+    # one bfloat16 step, augmentation and mixup off, from the same weights and batch
+    args = Arguments.from_ini(ctx["ini"])
+    args.compute_dtype = "bfloat16"
+    args.rotation = args.translate = args.scale = args.shear = 0.0
+    args.albu_prob = args.noise_prob = 0.0
+    args.clahe = args.mixup = args.elastic = False
+    torch.manual_seed(seed)
+    sd = create_model(args, num_classes=3, device="cpu").state_dict()
+    x, y, m = ctx["imgs"][:TRAIN_BATCH], ctx["labels"][:TRAIN_BATCH], np.ones(TRAIN_BATCH,
+                                                                              np.float32)
+    f32 = dataclasses.replace(args, compute_dtype="float32")
+    res = {}
+    for label, on in (("default", ()), ("wgrad", SWITCHES[:1]), ("all", SWITCHES),
+                      ("float32", ())):
+        if label == "float32":
+            args = f32
+        model = create_model(args, num_classes=3, device="cuda")
+        model.load_state_dict(sd)
+        rec = _GradRecorder(model)
+        step = build_train_step(model, rec, args, ctx["mean"], ctx["std"], device="cuda")
+        with switches(*on):
+            reset_launches()
+            loss = float(step(torch.Generator(device="cuda").manual_seed(0), x, y, m, 1e-4))
+            torch.cuda.synchronize()
+            n = read_launches()
+        stats = {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        res[label] = (loss, rec.grads, stats, n)
+    loss_d, grads_d, stats_d, _ = res["default"]
+    loss_f, grads_f, _, _ = res["float32"]
+    groups = {"conv": [k for k in grads_d if grads_d[k].dim() == 4],
+              "bn_param": [k for k in grads_d if grads_d[k].dim() == 1 and not k.startswith("fc.")],
+              "fc": ["fc.weight", "fc.bias"]}
+
+    def rel(a, b, keys):
+        return max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+                   for k in keys)
+
+    def l2(a, b, keys):
+        return max(float((a[k] - b[k]).norm()) / max(float(b[k].norm()), 1e-30) for k in keys)
+
+    def distances(a, b):
+        return {f"{g}_grad_{m.__name__}": m(a, b, keys) for g, keys in groups.items()
+                for m in (rel, l2)}
+
+    noise = distances(grads_d, grads_f)  # the default bfloat16 step's own distance
+    say("train_optin", step="default_vs_float32", loss_float32=loss_f,
+        loss_rel_diff=abs(loss_d - loss_f) / abs(loss_f), **noise)
+    for label, (k7, k8) in (("wgrad", (K7_PER_STEP, 0)), ("all", (K7_PER_STEP, K8_PER_STEP))):
+        loss, grads, stats, n = res[label]
+        check((n["conv3x3_wgrad"], n["bn_sums"], n["bn_grad_sums"]) == (k7, k8, k8),
+              f"one {label} step launched {n}")
+        lrel = abs(loss - loss_d) / abs(loss_d)
+        check(np.isfinite(loss) and lrel <= 1e-2, f"{label} step loss {loss} vs default {loss_d}")
+        off_d, off_f = distances(grads, grads_d), distances(grads, grads_f)
+        stat_rel = rel(stats, stats_d, stats_d)
+        check(off_d["fc_grad_rel"] <= 2e-2, f"{label} step: fc gradients "
+              f"{off_d['fc_grad_rel']} of max off default")
+        if label == "wgrad":
+            check(off_d["conv_grad_rel"] <= 2e-2, f"K7's conv weight gradients "
+                  f"{off_d['conv_grad_rel']} of max off default")
+        else:
+            check(stat_rel <= 2e-2, f"switched step: BN running statistics {stat_rel} of max "
+                  f"off default")
+            # the switched backward's own error, apart from bfloat16's: no
+            # further from the float32 step than 1.5 times the default step
+            for k, v in off_f.items():
+                if not k.startswith("fc"):
+                    check(v <= 1.5 * noise[k], f"switched step: {k} {v} from float32, over "
+                          f"1.5 x the default step's {noise[k]}")
+        say("train_optin", step=label, loss=loss, loss_default=loss_d, loss_rel_diff=lrel,
+            bn_stats_max_rel=stat_rel, launches=json.dumps(n),
+            **{f"{k}_vs_default": v for k, v in off_d.items()},
+            **{f"{k}_vs_float32": v for k, v in off_f.items()})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -991,12 +1435,17 @@ def main(argv=None) -> int:
         rec = phase_kernels(torch, opts.seed)
         rec.update(phase_tent(torch, opts.seed))
         rec["dcf_sign"] = phase_dcf(torch, opts.seed, sm_max_mhz)
+        rec["conv3x3_wgrad"] = phase_wgrad(torch, opts.seed)
+        rec.update(phase_bn(torch, opts.seed))
+        rec["gaussian_noise"], noise_launches = phase_noise(torch, opts.seed, sm_max_mhz)
         phase_ring(torch, opts.seed)
         profile_out = opts.profile_out.resolve()
-        by_path = {"serve": phase_serve(torch, opts.seed, work, profile_out)}
+        by_path = {"noise": noise_launches,
+                   "serve": phase_serve(torch, opts.seed, work, profile_out)}
         by_path["encrypt"] = phase_encrypt(torch, opts.seed, work, profile_out)
-        by_path["train"], by_path["train_twopass0"] = phase_train(torch, opts.seed, work,
-                                                                  profile_out)
+        by_path["train"], by_path["train_twopass0"], ctx = phase_train(torch, opts.seed, work,
+                                                                       profile_out)
+        by_path["train_optin"] = phase_train_optin(torch, opts.seed, work, profile_out, ctx)
         for name, meta in KERNELS.items():
             check(by_path[meta["path"]][name] > 0,
                   f"{name} was not launched on its path {meta['path']}: {by_path}")

@@ -281,6 +281,10 @@ class Arguments:
             )
 
         kw["num_threads"] = g.int("system", "num_threads", fallback=0)
+        # a port extension (the JAX package reads no such key): "bfloat16"
+        # lets a CPU run take the bfloat16 path, and with it the kernel
+        # switches' plain versions
+        kw["compute_dtype"] = g.str("system", "compute_dtype", fallback="auto")
 
         # [dp] — optional; the reference hardcodes these (train.py:326-334),
         # so absent keys reproduce its exact values

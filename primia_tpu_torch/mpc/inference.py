@@ -38,8 +38,8 @@ from primia_tpu_torch.mpc.engine import (MpcContext, MpcEngine, check_protocol,
                                          encode_and_share, reveal_and_decode)
 from primia_tpu_torch.mpc.shares import AShare
 from primia_tpu_torch.nn.core import Conv, Norm, bn_fold
-from primia_tpu_torch.ops.cuda_clahe import div
 from primia_tpu_torch.ops.image import clahe
+from primia_tpu_torch.ops.numerics import div
 
 _MODEL, _DATA, _DEALER = 0, 1, 2
 

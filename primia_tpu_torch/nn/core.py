@@ -10,6 +10,21 @@ card), as the JAX package left them to XLA.
 Batch norm runs in eval mode from its running statistics and in train
 mode from the batch's, with torch's running-statistics semantics; group
 norm has no running statistics.
+
+The JAX package's two opt-in kernel switches of this module are read here
+by the same names, so one setting picks the same path in both packages:
+
+- ``PRIMIA_PALLAS_WGRAD=1``: a 3x3, stride-1, pad-1 conv of a batch of
+  more than one with at least 128 channels in and out, computed in
+  bfloat16, is ``ops/cuda_wgrad.py:conv3x3_s1p1``, whose weight gradient
+  is K7 (``primia_tpu/nn/core.py:PlainEngine.conv2d``).
+- ``PRIMIA_PALLAS_BN=1``: train-mode batch norm of a 4-D bfloat16
+  activation is ``ops/cuda_bn.py:bn_train``, its sums K8
+  (``primia_tpu/nn/core.py:batch_norm``).
+
+The JAX package honours them only on a TPU. The port honours them on
+every device: on CUDA a switch that is set launches the kernel or raises,
+on the CPU the same dispatch runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -20,6 +35,9 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from primia_tpu_torch.ops.cuda_bn import bn_train, use_pallas_bn
+from primia_tpu_torch.ops.cuda_wgrad import conv3x3_s1p1, use_pallas_wgrad
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:
@@ -66,10 +84,23 @@ def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> tor
     return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
 
 
+def _compute_dtype(x: torch.Tensor, w: torch.Tensor):
+    """The dtype a conv of ``x`` and ``w`` computes in: autocast's where
+    autocast is on for ``x``'s device, else the operands' shared dtype
+    (None where they differ)."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype if x.dtype == w.dtype else None
+
+
 class Conv(nn.Module):
     """Bias-free NCHW conv with OIHW weights and symmetric padding;
     He-normal (fan_out, relu gain) init as the JAX package's
-    ``kaiming_normal_conv``."""
+    ``kaiming_normal_conv``. Under ``PRIMIA_PALLAS_WGRAD=1`` a conv that
+    meets the JAX package's condition runs as ``conv3x3_s1p1`` on the
+    bfloat16 operands: the same forward and data gradient, the weight
+    gradient from K7, cast to bfloat16 and back to the float32 parameter
+    as autocast's gradient is."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
         super().__init__()
@@ -78,7 +109,15 @@ class Conv(nn.Module):
         nn.init.normal_(self.weight, std=math.sqrt(2.0 / (k * k * cout)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+        w = self.weight
+        if (self.stride == 1 and self.padding == 1 and w.shape[2:] == (3, 3)
+                and x.dim() == 4 and x.shape[0] > 1
+                # C >= 128 only, as the JAX package (nn/core.py:50-56)
+                and w.shape[1] >= 128 and w.shape[0] >= 128
+                and _compute_dtype(x, w) == torch.bfloat16 and use_pallas_wgrad()):
+            with torch.autocast(x.device.type, enabled=False):
+                return conv3x3_s1p1(x.to(torch.bfloat16), w.to(torch.bfloat16))
+        return F.conv2d(x, w, stride=self.stride, padding=self.padding)
 
 
 class Norm(nn.Module):
@@ -92,7 +131,9 @@ class Norm(nn.Module):
     ``new = (1 - 0.1) * old + 0.1 * batch`` and ``num_batches_tracked += 1``.
     It is ``F.batch_norm``, which computes exactly that (the JAX package
     left BN to XLA); a bfloat16 input keeps float32 statistics and
-    parameters."""
+    parameters. Under ``PRIMIA_PALLAS_BN=1`` a 4-D bfloat16 input takes
+    ``bn_train`` instead (statistics and the gamma/beta gradients from K8,
+    float32 parameters), with the same running-statistics update."""
 
     momentum = 0.1
 
@@ -113,8 +154,23 @@ class Norm(nn.Module):
         if self.training:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
+            if x.dim() == 4 and x.dtype == torch.bfloat16 and use_pallas_bn():
+                return self._bn_train(x)
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=True, momentum=self.momentum,
                                 eps=self.eps)
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, self.eps)
+
+    def _bn_train(self, x: torch.Tensor) -> torch.Tensor:
+        """``bn_train`` and the running-statistics update of
+        ``primia_tpu/nn/core.py:batch_norm`` (train=True): the unbiased
+        variance, ``(1 - m) * old + m * batch``."""
+        with torch.autocast(x.device.type, enabled=False):
+            y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m * n / max(n - 1, 1))
+        return y

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from primia_tpu_torch.ops import image as I
-from primia_tpu_torch.ops.cuda_clahe import div
+from primia_tpu_torch.ops.numerics import div
 
 
 class AugmentConfig(NamedTuple):

@@ -23,15 +23,9 @@ from typing import Tuple
 
 import torch
 
-launches = {"clahe_lut": 0, "clahe_apply": 0}
+from primia_tpu_torch.ops.numerics import div
 
-def div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` as IEEE division on every device. On CUDA, PyTorch
-    divides a tensor by a Python number as a product with the number's
-    reciprocal, which can differ in the last bit (and then flip a
-    rounding); a one-element divisor on ``x``'s device keeps the true
-    quotient, as the kernels and the JAX reference compute it."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+launches = {"clahe_lut": 0, "clahe_apply": 0}
 
 
 def tile_geometry(H: int, W: int, tiles: int) -> Tuple[int, int]:

@@ -14,10 +14,15 @@ both devices compute the TPU's default semantics:
   ``twopass=False`` is K2.
 - ``warp_dense`` is the two-pass displacement warp on K1, or K2 under
   ``PRIMIA_WARP_TWOPASS=0``; that switch changes the math, so it is
-  honoured. The TPU-implementation switches of the JAX package
+  honoured.
+- The TPU-implementation switches of the JAX package
   (``PRIMIA_PALLAS_WARP``, ``PRIMIA_TWOPASS_WARP``,
   ``PRIMIA_PALLAS_AUGMENT``) choose among TPU formulations of the same
-  math and have no counterpart here.
+  math and pick nothing here. ``PRIMIA_PALLAS_AUGMENT`` sends the JAX
+  package's ``warp_affine(twopass=False)`` to its K6
+  (``pallas_kernels.py:resample_bilinear_pallas``, bilinear with zero
+  fill); that contract already is this ``warp_affine(twopass=False)``
+  on K2.
 
 Everything else is elementwise PyTorch.
 """
@@ -32,8 +37,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from primia_tpu_torch.ops.cuda_clahe import clahe_apply, clahe_luts, div
+from primia_tpu_torch.ops.cuda_clahe import clahe_apply, clahe_luts
 from primia_tpu_torch.ops.cuda_tent import tent_bilinear, tent_rows
+from primia_tpu_torch.ops.numerics import div
 
 
 # ----------------------------------------------------------------- sampling

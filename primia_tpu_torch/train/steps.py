@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from primia_tpu_torch.ops.augment import AugmentConfig, build_augment_fn, normalize_only
-from primia_tpu_torch.ops.cuda_clahe import div
 from primia_tpu_torch.ops.image import clahe
+from primia_tpu_torch.ops.numerics import div
 from primia_tpu_torch.train import losses
 
 

@@ -242,3 +242,157 @@ def test_sign_shares_on_the_card(cuda_device):
     sign = compare.sign_shares(gen, S.share(gen, v))
     assert cuda_dcf.launches["dcf_sign"] == before + 1
     torch.testing.assert_close(S.reconstruct(sign), (v < 0).long(), rtol=0, atol=0)
+
+
+# ------------------------- the train step's opt-in kernels K7, K8 and K5
+
+def _bf16_cl(shape, device, seed, scale=1.0, shift=0.0):
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy((rng.standard_normal(shape) * scale + shift).astype(np.float32))
+    return t.to(device=device, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+# (B, ci, co, H, W): layer2's and layer3's train shapes, and ragged ones (B*H*W
+# not a multiple of the 32-pixel step, 3*ci or 3*co not of the 128 tile)
+WGRAD_SHAPES = [(200, 128, 128, 28, 28), (200, 256, 256, 14, 14), (3, 64, 512, 9, 11),
+                (2, 512, 64, 5, 7), (1, 8, 16, 3, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WGRAD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_wgrad_matches_plain(cuda_device, shape):
+    """Within 1e-3 of max |dW|: the same bf16 products summed in float32
+    in other orders."""
+    from primia_tpu_torch.ops import cuda_wgrad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, ci, co, H, W = shape
+    x, g = _bf16_cl((B, ci, H, W), cuda_device, 20), _bf16_cl((B, co, H, W), cuda_device, 21)
+    before = cuda_wgrad.launches["conv3x3_wgrad"]
+    got = cuda_wgrad.conv3x3_wgrad(x, g)
+    assert cuda_wgrad.launches["conv3x3_wgrad"] == before + 1
+    want = cuda_wgrad.conv3x3_wgrad_plain(x, g)
+    assert got.shape == (co, ci, 3, 3) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * float(want.abs().max()))
+    # the contract is the same for a contiguous NCHW operand (copied, counted)
+    copies = cuda_wgrad.layout_copies["conv3x3_wgrad"]
+    torch.testing.assert_close(cuda_wgrad.conv3x3_wgrad(x.contiguous(), g), got, rtol=0, atol=0)
+    assert cuda_wgrad.layout_copies["conv3x3_wgrad"] == copies + (0 if x.is_contiguous() else 1)
+
+
+@pytest.mark.cuda
+def test_conv3x3_s1p1_on_the_card_matches_the_library_conv(cuda_device):
+    """The autograd Function against the library conv's own gradients in
+    bf16: y equal, dx equal, dW within 1e-2 of its max (both round a
+    float32 sum to bf16)."""
+    from primia_tpu_torch.ops import cuda_wgrad
+
+    x = _bf16_cl((8, 128, 14, 14), cuda_device, 22)
+    w = (torch.randn((128, 128, 3, 3), device=cuda_device) * 0.05).to(torch.bfloat16)
+    grads = []
+    for fn in (cuda_wgrad.conv3x3_s1p1, lambda a, b: torch.nn.functional.conv2d(a, b, padding=1)):
+        xi, wi = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(xi, wi)
+        grads.append((y, *torch.autograd.grad(torch.sin(y.float()).sum(), (xi, wi))))
+    (y, dx, dw), (y_ref, dx_ref, dw_ref) = grads
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0)
+    torch.testing.assert_close(dx, dx_ref, rtol=0, atol=0)
+    torch.testing.assert_close(dw.float(), dw_ref.float(), rtol=0,
+                               atol=1e-2 * float(dw_ref.float().abs().max()))
+
+
+# the stem and layer4 at batch 200, and ragged shapes (C = 24, 64, 128, 512)
+BN_SHAPES = [(200, 64, 112, 112), (200, 512, 7, 7), (3, 24, 5, 7), (4, 64, 9, 11),
+             (5, 128, 3, 3), (1, 512, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bn_sums_match_plain(cuda_device, shape):
+    """Each sum within 1e-5 of the same sum of absolute values (float32
+    sums of the same bf16 values in other orders)."""
+    from primia_tpu_torch.ops import cuda_bn
+
+    x, g = _bf16_cl(shape, cuda_device, 23, 1.0, 0.5), _bf16_cl(shape, cuda_device, 24, 0.1, 0.05)
+    before = dict(cuda_bn.launches)
+    got = cuda_bn.channel_sums(x) + cuda_bn.grad_channel_sums(g, x)
+    assert cuda_bn.launches == {k: v + 1 for k, v in before.items()}
+    want = cuda_bn.channel_sums_plain(x) + cuda_bn.grad_channel_sums_plain(g, x)
+    scale = cuda_bn.channel_sums_plain(x.abs()) + cuda_bn.grad_channel_sums_plain(g.abs(),
+                                                                                x.abs())
+    for a, b, m in zip(got, want, scale):
+        assert a.shape == (shape[1],) and a.dtype == torch.float32
+        assert bool(((a - b).abs() <= 1e-5 * m + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_bn_train_on_the_card_matches_f_batch_norm(cuda_device):
+    """Against ``F.batch_norm`` in train mode on the same bf16 input: y
+    within 1 bf16 ulp of max |y| (both round a float32 value once), mean
+    and biased variance within 1e-5, and the gradients of x, gamma and beta
+    within 1e-2 of their max (bf16 gradients, other sums)."""
+    from primia_tpu_torch.ops import cuda_bn
+
+    x = _bf16_cl((16, 64, 20, 20), cuda_device, 25, 1.5, 0.3)
+    gy = _bf16_cl((16, 64, 20, 20), cuda_device, 26)
+    gamma = torch.rand(64, device=cuda_device) + 0.5
+    beta = torch.randn(64, device=cuda_device) * 0.1
+    outs = []
+    for port in (True, False):
+        xi, gi, bi = (t.clone().requires_grad_(True) for t in (x, gamma, beta))
+        if port:
+            y, mean, var = cuda_bn.bn_train(xi, gi, bi)
+        else:
+            y = torch.nn.functional.batch_norm(xi, None, None, gi, bi, training=True)
+            xf = x.float()
+            mean, var = xf.mean((0, 2, 3)), xf.var((0, 2, 3), unbiased=False)
+        outs.append((y, mean, var, *torch.autograd.grad(y, (xi, gi, bi), gy)))
+    limits = {"y": 2.0 ** -7, "mean": None, "var": None, "dx": 1e-2, "dgamma": 1e-2,
+              "dbeta": 1e-2}
+    for (name, rel), got, want in zip(limits.items(), *outs):
+        got, want = got.detach().float(), want.detach().float()
+        atol = 1e-5 if rel is None else rel * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((200, 3, 224, 224), torch.float32),
+                                         ((3, 1000), torch.float32),
+                                         ((5, 7, 13), torch.bfloat16)], ids=["train", "rows",
+                                                                           "bf16"])
+def test_gaussian_noise_matches_plain(cuda_device, shape, dtype):
+    """The uniforms bit for bit; the output within 1e-5 (float32) or one
+    bf16 ulp: the two differ at most in the last bits of log, cos and
+    sqrt."""
+    from primia_tpu_torch.ops import cuda_kernels
+
+    x = torch.rand(shape, device=cuda_device).to(dtype)
+    before = cuda_kernels.launches["gaussian_noise"]
+    out = cuda_kernels.add_gaussian_noise(x, 77, 0.1)
+    assert cuda_kernels.launches["gaussian_noise"] == before + 1
+    assert out.shape == x.shape and out.dtype == dtype
+    B, n = shape[0], x.numel() // shape[0]
+    u = cuda_kernels.noise_uniforms(x, 77)
+    for a, b in zip(u, cuda_kernels.noise_uniforms_plain(B, n, 77, cuda_device)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    want = cuda_kernels.add_gaussian_noise_plain(x, 77, 0.1).float()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.abs().max())
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=tol)
+    assert not torch.equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+def test_opt_in_kernels_reject_bad_operands(cuda_device):
+    from primia_tpu_torch.ops import cuda_bn, cuda_kernels, cuda_wgrad
+
+    x = _bf16_cl((2, 12, 5, 5), cuda_device, 27)
+    with pytest.raises(ValueError):
+        cuda_wgrad.conv3x3_wgrad(x, x)  # 12 channels: not a multiple of 8
+    with pytest.raises(ValueError):
+        cuda_bn.channel_sums(x)
+    with pytest.raises(ValueError):
+        cuda_bn.channel_sums(_bf16_cl((2, 16, 5, 5), cuda_device, 28).float())
+    with pytest.raises(ValueError):
+        cuda_kernels.add_gaussian_noise(torch.zeros(70000, 2, device=cuda_device), 1, 0.1)
+    with pytest.raises(ValueError):
+        cuda_kernels.add_gaussian_noise(torch.zeros(2, 2, device=cuda_device).double(), 1, 0.1)
