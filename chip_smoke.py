@@ -30,7 +30,9 @@ Phases, each reported on its own line; any failure exits nonzero:
                   computing the same function (a yardstick the port never
                   calls).
 5. tent_bilinear  K2 likewise, at the canonical shape (the dense warp's and
-                  the affine warp's gather coordinates) and the ragged one.
+                  the affine warp's gather coordinates), the ragged one, and
+                  2 x 1 planes of 37x45 with positions up to 4 planes past
+                  either edge.
 6. serve          slice 1's main path: the canonical recipe
                   (configs/torch/pneumonia-resnet-pretrained.ini: ResNet-18,
                   3 channels, 224 px, CLAHE on) with seeded random weights,
@@ -67,9 +69,14 @@ Phases, each reported on its own line; any failure exits nonzero:
 9. wgrad          K7, the 3x3/s1/p1 weight gradient of the opt-in train path,
                   against its plain version (within 1e-3 of max |dW|) at the
                   train step's two shapes (layer2: 200 x 128 x 28 x 28, layer3:
-                  200 x 256 x 14 x 14) and a ragged one; times as above, bound
-                  from the bf16 tensor-core operations at 989 TFLOP/s or the
-                  bytes, library_ms ``torch.nn.grad.conv2d_weight`` (cuDNN).
+                  200 x 256 x 14 x 14) and two ragged ones, and bit-identical
+                  over two calls; times as above, bound from the bf16
+                  tensor-core operations at 989 TFLOP/s or the bytes,
+                  library_ms ``torch.nn.grad.conv2d_weight`` (cuDNN); each
+                  shape's plan (``cuda_wgrad.card_plan``) and TFLOP/s; the
+                  library's registers, shared memory and spills (cuobjdump
+                  -res-usage) and the kernel's SASS opcode counts, which must
+                  hold HGMMA and UTMALDG (wgmma fed by TMA).
 10. bn            K8, both BN channel sums, against their plain versions
                   (within 1e-5 of the sums of absolute values) at the stem's
                   200 x 64 x 112 x 112, layer4's 200 x 512 x 7 x 7 and a ragged
@@ -103,7 +110,8 @@ Phases, each reported on its own line; any failure exits nonzero:
                   counters set to 0 just before and read just after (K7 6
                   times a step, each K8 sum 20 times, K1 and CLAHE as in
                   phase 7); the wrappers' layout copies; 24 timed steps of
-                  the switched step beside 24 of the default one; one bf16
+                  the switched step beside 24 of the default one (the
+                  switched step's p50 and K7's device ms a step); one bf16
                   step with augmentation and mixup off, switched against
                   default from the same weights and batch (loss within 1e-2
                   relative; the fc's gradients within 2e-2 of max; K7's conv
@@ -187,6 +195,8 @@ KERNELS = {
                        "kernel": ("gaussian_noise_kernel",),
                        "source": "primia_tpu_torch/csrc/noise.cu"},
 }
+KERNEL_NAMES = sorted({k for meta in KERNELS.values() for k in meta["kernel"]}, key=len,
+                      reverse=True)
 # K4's work (csrc/dcf.cu): a Threefry-2x32-20 block's 20 rotations (funnel
 # shifts) and 20 xors issue only on an SM's 64 INT32 lanes; its adds may
 # also issue on the FMA pipe as IMAD, so they do not raise the least time.
@@ -418,6 +428,13 @@ def tent_cases(torch, seed):
     ys = torch.rand((B, H, W), generator=g, device=dev) * (H + 5.0) - 3.0
     xs = torch.rand((B, H, W), generator=g, device=dev) * (W + 5.0) - 3.0
     yield (f"{B}x{C}x{H}x{W}", False, planes, [("rows", xs, 2), ("cols", ys, 1)], [("gather", ys, xs)])
+    # K2 alone at one plane an image, a pixel count no multiple of a block's
+    # 512, and positions up to 4 planes past either edge
+    B, C, H, W = 2, 1, 37, 45
+    planes = torch.rand((B * C, H, W), generator=g, device=dev)
+    ys = torch.rand((B, H, W), generator=g, device=dev) * (9.0 * H) - 4.0 * H
+    xs = torch.rand((B, H, W), generator=g, device=dev) * (9.0 * W) - 4.0 * W
+    yield (f"{B}x{C}x{H}x{W}", False, planes, [], [("gather_far", ys, xs)])
 
 
 def phase_tent(torch, seed):
@@ -432,7 +449,7 @@ def phase_tent(torch, seed):
            "tent_bilinear": {"max_abs_err": 0.0, "times": []}}
     for shape, canonical, planes, row_cases, gather_cases in tent_cases(torch, seed):
         N, H, W = planes.shape
-        B = row_cases[0][1].shape[0]
+        B = gather_cases[0][1].shape[0]
         px = N * H * W
         runs = []
         for case, coords, axis in row_cases:
@@ -493,26 +510,54 @@ def dcf_int32_ops(torch, alpha, x):
     return alpha.shape[0] * DCF_LEVELS * DCF_KEY_OPS_PER_LEVEL + past * DCF_EVAL_OPS_PER_LEVEL
 
 
-def dcf_sass_opcodes():
-    """Opcode counts (by mnemonic before the first dot) of
-    ``dcf_sign_kernel`` from ``cuobjdump -sass`` of the built library. The
-    level loop is not unrolled, so they are one level's plus the set-up
-    and the end. None where cuobjdump is missing."""
+def _cuobjdump():
+    from primia_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    return tool if tool.is_file() else None
+
+
+def sass_opcodes(library, kernel):
+    """Opcode counts (by mnemonic before the first dot) of the one function
+    whose mangled name holds ``kernel``, from ``cuobjdump -sass`` of the
+    built ``library`` (a ``csrc`` name): a loop that is not unrolled counts
+    once. None where cuobjdump is missing."""
     import re
 
     from primia_tpu_torch.ops import _build
 
-    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    if not tool.is_file():
+    tool = _cuobjdump()
+    if tool is None:
         return None
-    sass = subprocess.run([str(tool), "-sass", str(_build.library_path("dcf"))],
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(library))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    funcs = [f for f in sass.split("Function : ")[1:] if "dcf_sign_kernel" in f.split()[0]]
-    check(len(funcs) == 1, "cuobjdump shows no single dcf_sign_kernel")
+    funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split()[0]]
+    check(len(funcs) == 1, f"cuobjdump shows no single {kernel}")
     counts = {}
     for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", funcs[0]):
         counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def resource_usage(library):
+    """{kernel: {"REG": n, "SHARED": bytes, "LOCAL": bytes, ...}} of every
+    kernel in the built ``library`` (``cuobjdump -res-usage``): registers a
+    thread, static shared memory, and local memory (spills). None where
+    cuobjdump is missing."""
+    import re
+
+    from primia_tpu_torch.ops import _build
+
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    text = subprocess.run([str(tool), "-res-usage", str(_build.library_path(library))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    out = {}
+    for m in re.finditer(r"Function ([^\s:]+):\s*\n\s*([^\n]+)", text):
+        name = next((k for k in KERNEL_NAMES if k in m.group(1)), m.group(1))
+        out[name] = {k: int(v) for k, v in re.findall(r"(\w+(?:\[\d+\])?):(\d+)", m.group(2))}
+    return out
 
 
 def phase_dcf(torch, seed, sm_max_mhz):
@@ -568,7 +613,7 @@ def phase_dcf(torch, seed, sm_max_mhz):
             rec.update(ms=call_ms if dev_ms is None else dev_ms, call_ms=call_ms,
                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None)
-    sass = dcf_sass_opcodes()
+    sass = sass_opcodes("dcf", "dcf_sign_kernel")
     say("dcf_sign", sass_opcodes="not available" if sass is None else json.dumps(sass))
     return rec
 
@@ -608,10 +653,15 @@ def mean_record(records):
 def phase_wgrad(torch, seed):
     """Phase 9: K7 against its plain version on the card, at the train step's two
     shapes (layer2's 128 channels at 28x28 and layer3's 256 at 14x14, batch
-    200) and a ragged one (B*H*W not a multiple of the 32-pixel step, 3*ci
-    not of the 128-row tile). Within 1e-3 of max |dW| (the JAX tests'
-    limit): both sum the same bf16 products in float32, in other orders.
-    Returns the record: the mean of the two train-step shapes."""
+    200) and ragged ones (channels not multiples of the 64-channel box, H
+    not of the box's rows, W not of 16). Within 1e-3 of max |dW| (the JAX
+    tests' limit): both sum the same bf16 products in float32, in other
+    orders. Two calls on the same operands must give the same bits. Also
+    prints each shape's plan and achieved TFLOP/s, the wgrad library's
+    registers, shared memory and spills (cuobjdump -res-usage), and the SASS
+    opcode counts of conv3x3_wgrad_kernel, which must hold HGMMA (wgmma) and
+    UTMALDG (TMA loads). Returns the record: the mean of the two train-step
+    shapes."""
     from primia_tpu_torch.ops import cuda_wgrad as cw
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's float32 products
@@ -624,7 +674,7 @@ def phase_wgrad(torch, seed):
 
     records, worst = [], 0.0
     for B, ci, co, H, W in ((TRAIN_BATCH, 128, 128, 28, 28), (TRAIN_BATCH, 256, 256, 14, 14),
-                            (3, 64, 512, 9, 11)):
+                            (3, 64, 512, 9, 11), (2, 72, 136, 13, 28)):
         x, gy = operand(B, ci, H, W), operand(B, co, H, W)
         got = cw.conv3x3_wgrad(x, gy)
         torch.cuda.synchronize()
@@ -632,6 +682,8 @@ def phase_wgrad(torch, seed):
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         check(err <= 1e-3 * scale, f"conv3x3_wgrad differs from plain at {(B, ci, co, H, W)}: "
               f"max |d| {err}, max |dW| {scale}")
+        check(torch.equal(cw.conv3x3_wgrad(x, gy), got),
+              f"conv3x3_wgrad gives other bits on a second call at {(B, ci, co, H, W)}")
         worst = max(worst, err)
         lib = lambda: torch.nn.grad.conv2d_weight(x, (co, ci, 3, 3), gy, padding=1)  # noqa: E731
         lib_err = float((lib().float() - want).abs().max())
@@ -640,12 +692,21 @@ def phase_wgrad(torch, seed):
                          lambda: cw.conv3x3_wgrad_plain(x, gy), lib,
                          bound(2 * (x.numel() + gy.numel()) + 4 * co * ci * 9, flops,
                                PEAK_BF16_TENSOR_OPS_PER_S))
+        plan = cw.card_plan(dev, B, ci, co, H, W)
         _say_times("conv3x3_wgrad", r, shape=f"B{B}:ci{ci}:co{co}:{H}x{W}", max_abs_err=err,
                    max_abs_dw=scale, library_max_abs_diff=lib_err, gflop=flops / 1e9,
                    tflop_per_s=f"{flops / (r['ms'] * 1e-3) / 1e12:.2f}",
-                   splits=cw.split_pixels(B * H * W, ci, co)[0])
+                   library_tflop_per_s=f"{flops / (r['library_ms'] * 1e-3) / 1e12:.2f}",
+                   deterministic="yes", blocks=plan.blocks,
+                   plan=json.dumps(dataclasses.asdict(plan), separators=(",", ":")))
         if B == TRAIN_BATCH:
             records.append(r)
+    res = resource_usage("wgrad")
+    say("conv3x3_wgrad", resource_usage="not available" if res is None else json.dumps(res))
+    sass = sass_opcodes("wgrad", "conv3x3_wgrad_kernel")
+    say("conv3x3_wgrad", sass_opcodes="not available" if sass is None else json.dumps(sass))
+    check(sass is not None and sass.get("HGMMA", 0) > 0 and sass.get("UTMALDG", 0) > 0,
+          f"conv3x3_wgrad_kernel's SASS lacks HGMMA or UTMALDG: {sass}")
     return {**mean_record(records), "max_abs_err": worst}
 
 
@@ -1314,7 +1375,9 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
         with switches(*on):
             times[label] = time_steps(torch, np, ctx["run"], f"train_optin.{label}",
                                       profile_out, f".train_optin.{label}")
-    say("train_optin", switched_over_default_p50=f"{times['switched'][0] / times['default'][0]:.4f}")
+    say("train_optin", switched_over_default_p50=f"{times['switched'][0] / times['default'][0]:.4f}",
+        switched_step_ms_p50=f"{times['switched'][0]:.4f}",
+        k7_device_ms_per_step=f"{times['switched'][1]['wgrad_kernel']:.6f}")
 
     # one bfloat16 step, augmentation and mixup off, from the same weights and batch
     args = Arguments.from_ini(ctx["ini"])

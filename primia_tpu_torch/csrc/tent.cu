@@ -13,9 +13,7 @@
 //
 // Layout: planes (N, H, W) f32 with N = B*C, the C channel planes of image b
 // at rows b*C .. b*C+C-1; coordinate fields (B, Ho, Wo) f32 are shared by
-// the C planes of an image. One block per output row of a plane (the grid
-// runs over planes x rows), one thread per output pixel in turn, so
-// neighbouring threads write neighbouring pixels.
+// the C planes of an image.
 //
 // tent_rows_kernel (K1)
 //   Replaces the TPU kernel primia_tpu/ops/pallas_tent.py:_rows_kernel
@@ -26,24 +24,23 @@
 //     row form    out[n,i,j] = v(i, k0)(1-f) + v(i, k0+1) f,  q = qs[b,i,j]
 //     column form out[n,i,j] = v(k0, j)(1-f) + v(k0+1, j) f,  q = ps[b,i,j]
 //   with k0 = floor(q), f = q - k0 and v = 0 outside the plane, which gives
-//   zero fill outside [-1, L] (L = W or H), the TPU kernel's contract. In
-//   the column form neighbouring threads read neighbouring columns of the
-//   two source rows, so the loads stay coalesced where the field is smooth.
+//   zero fill outside [-1, L] (L = W or H), the TPU kernel's contract. One
+//   block per output row of a plane (the grid runs over planes x rows), one
+//   thread per output pixel in turn, so neighbouring threads write
+//   neighbouring pixels. In the column form neighbouring threads read
+//   neighbouring columns of the two source rows, so the loads stay
+//   coalesced where the field is smooth.
 //   Bound: memory. At the canonical shape (200 images x 3 channels of
 //   224x224) a pass reads 120.4 MB of planes and 40.1 MB of coordinates and
-//   writes 120.4 MB: 0.084 ms at 3.35 TB/s. Each input byte is read about
-//   once (the second tap of a row hits the same cache line).
+//   writes 120.4 MB: 0.084 ms at 3.35 TB/s. The planes are read about once
+//   (the second tap of a row hits the same cache line), but the blocks of
+//   every plane read their image's coordinate row again: C times, 120.4 MB
+//   of coordinates where the bound counts 40.1 MB, and the floor and the
+//   weight are computed C times. That is why K1 is the next kernel in
+//   ROADMAP.md: tent_bilinear_kernel's design below, one thread walking
+//   its image's planes, removes both.
 //
-// tent_bilinear_kernel (K2)
-//   Replaces primia_tpu/ops/pallas_tent.py:_tent_kernel (pallas_call in
-//   resample_tent_pallas): exact bilinear sampling at absolute (ys, xs),
-//   zero fill per tap, the function of primia_tpu/ops/image.py:
-//   bilinear_sample that the TPU kernel's bf16 tent contraction
-//   approximates. On Hopper it is a 4-tap gather: the TPU's W-wide tent
-//   matmul per output pixel (and its max_dy row band, which only saved MACs)
-//   has no counterpart.
-//   Bound: memory. At the canonical shape it reads 120.4 MB of planes and
-//   80.3 MB of coordinates and writes 120.4 MB: 0.096 ms at 3.35 TB/s.
+// tent_bilinear_kernel (K2): its note is above the kernel.
 
 #include <cuda_runtime.h>
 
@@ -86,40 +83,82 @@ tent_rows_kernel(const float* __restrict__ planes, const float* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(256)
-tent_bilinear_kernel(const float* __restrict__ planes, const float* __restrict__ ys,
-                     const float* __restrict__ xs, float* __restrict__ out, int C,
-                     int H, int W, int Ho, int Wo) {
-  const long long row = blockIdx.x;  // n * Ho + i
-  const long long n = row / Ho;
-  const int i = (int)(row - n * Ho);
-  const long long b = n / C;
-  const float* plane = planes + n * H * W;
-  const long long coord0 = (b * Ho + i) * Wo;
-  float* out_row = out + row * Wo;
+// tent_bilinear_kernel (K2)
+//   Replaces primia_tpu/ops/pallas_tent.py:_tent_kernel (pallas_call in
+//   resample_tent_pallas): exact bilinear sampling at absolute (ys, xs),
+//   zero fill per tap, the function of primia_tpu/ops/image.py:
+//   bilinear_sample that the TPU kernel's bf16 tent contraction
+//   approximates. On Hopper it is a 4-tap gather: the TPU's W-wide tent
+//   matmul per output pixel (and its max_dy row band, which only saved MACs)
+//   has no counterpart.
+//   A thread owns PIX output pixels of one image, BLOCK apart, so that the
+//   lanes of a warp hold neighbouring pixels and every load and store of a
+//   warp is one contiguous run (or, for a gather, a few neighbouring runs
+//   where the field is smooth). It reads each pixel's ys and xs once and
+//   computes its clamped taps, their validity and its two weights once,
+//   then walks the image's planes: four gathered taps a pixel through the
+//   read-only path and one store a plane. The grid is (pixel blocks, images,
+//   groups of CH_GROUP planes). The kernel this one replaced ran one block
+//   per output row of each plane: every plane re-read its image's
+//   coordinates (C times their bytes) and recomputed the taps.
+//   Bound: memory. At the canonical shape it reads 120.4 MB of planes and
+//   80.3 MB of coordinates and writes 120.4 MB, each once: 0.096 ms at
+//   3.35 TB/s. PERF.md, section 6, gives its time on the card (NVIDIA H100
+//   80GB HBM3, 700 W) beside the old design's 0.22-0.27 ms and
+//   grid_sample's 0.136 ms.
+constexpr int BLOCK = 256;
+constexpr int PIX = 2;       // output pixels a thread
+constexpr int CH_GROUP = 4;  // planes a thread walks, at most
 
-  for (int j = threadIdx.x; j < Wo; j += blockDim.x) {
-    const float y = ys[coord0 + j];
-    const float x = xs[coord0 + j];
+__global__ void __launch_bounds__(BLOCK)
+tent_bilinear_kernel(const float* __restrict__ planes, const float* __restrict__ ys,
+                     const float* __restrict__ xs, float* __restrict__ out, int C, int H,
+                     int W, int HoWo) {
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * (BLOCK * PIX) + threadIdx.x;  // the first pixel, in the image
+  const float* ys_b = ys + (long long)b * HoWo;
+  const float* xs_b = xs + (long long)b * HoWo;
+  int off[PIX];         // y0 * W + x0: read only where a tap is valid
+  unsigned valid[PIX];  // bit 0: (y0, x0), 1: (y0, x1), 2: (y1, x0), 3: (y1, x1); 0 past the end
+  float wx[PIX], wy[PIX];
+#pragma unroll
+  for (int i = 0; i < PIX; ++i) {
+    const int q = q0 + i * BLOCK;
+    const float y = q < HoWo ? __ldg(ys_b + q) : 0.0f;
+    const float x = q < HoWo ? __ldg(xs_b + q) : 0.0f;
     const float y0f = floorf(y);
     const float x0f = floorf(x);
-    const float wy = __fsub_rn(y, y0f);
-    const float wx = __fsub_rn(x, x0f);
+    wy[i] = __fsub_rn(y, y0f);
+    wx[i] = __fsub_rn(x, x0f);
     const int y0 = clamp_tap(y0f, H);
     const int x0 = clamp_tap(x0f, W);
-    const int y1 = y0 + 1;
-    const int x1 = x0 + 1;
-    const bool r0 = y0 >= 0 && y0 < H, r1 = y1 >= 0 && y1 < H;
-    const bool c0 = x0 >= 0 && x0 < W, c1 = x1 >= 0 && x1 < W;
-    const float v00 = (r0 && c0) ? plane[(long long)y0 * W + x0] : 0.0f;
-    const float v01 = (r0 && c1) ? plane[(long long)y0 * W + x1] : 0.0f;
-    const float v10 = (r1 && c0) ? plane[(long long)y1 * W + x0] : 0.0f;
-    const float v11 = (r1 && c1) ? plane[(long long)y1 * W + x1] : 0.0f;
-    const float one_wx = __fsub_rn(1.0f, wx);
-    const float one_wy = __fsub_rn(1.0f, wy);
-    const float top = __fadd_rn(__fmul_rn(v00, one_wx), __fmul_rn(v01, wx));
-    const float bot = __fadd_rn(__fmul_rn(v10, one_wx), __fmul_rn(v11, wx));
-    out_row[j] = __fadd_rn(__fmul_rn(top, one_wy), __fmul_rn(bot, wy));
+    const bool r0 = y0 >= 0 && y0 < H, r1 = y0 + 1 >= 0 && y0 + 1 < H;
+    const bool c0 = x0 >= 0 && x0 < W, c1 = x0 + 1 >= 0 && x0 + 1 < W;
+    off[i] = y0 * W + x0;
+    valid[i] = q < HoWo ? (unsigned)(r0 && c0) | (unsigned)(r0 && c1) << 1 |
+                              (unsigned)(r1 && c0) << 2 | (unsigned)(r1 && c1) << 3
+                        : 0u;
+  }
+
+  const int c_end = min(C, (int)(blockIdx.z + 1) * CH_GROUP);
+  for (int c = blockIdx.z * CH_GROUP; c < c_end; ++c) {
+    const long long n = (long long)b * C + c;
+    const float* plane = planes + n * H * W;
+    float* o = out + n * HoWo;
+#pragma unroll
+    for (int i = 0; i < PIX; ++i) {
+      const float* p = plane + off[i];
+      const float v00 = (valid[i] & 1u) ? __ldg(p) : 0.0f;
+      const float v01 = (valid[i] & 2u) ? __ldg(p + 1) : 0.0f;
+      const float v10 = (valid[i] & 4u) ? __ldg(p + W) : 0.0f;
+      const float v11 = (valid[i] & 8u) ? __ldg(p + W + 1) : 0.0f;
+      const float one_wx = __fsub_rn(1.0f, wx[i]);
+      const float one_wy = __fsub_rn(1.0f, wy[i]);
+      const float top = __fadd_rn(__fmul_rn(v00, one_wx), __fmul_rn(v01, wx[i]));
+      const float bot = __fadd_rn(__fmul_rn(v10, one_wx), __fmul_rn(v11, wx[i]));
+      const int q = q0 + i * BLOCK;
+      if (q < HoWo) o[q] = __fadd_rn(__fmul_rn(top, one_wy), __fmul_rn(bot, wy[i]));
+    }
   }
 }
 
@@ -147,13 +186,17 @@ int tent_rows(const void* planes, const void* q, void* out, int N, int C, int H,
 // planes: (N, H, W) float32; ys, xs: (N / C, Ho, Wo) float32; out: (N, Ho, Wo).
 int tent_bilinear(const void* planes, const void* ys, const void* xs, void* out, int N,
                   int C, int H, int W, int Ho, int Wo, void* stream) {
-  const long long blocks = (long long)N * Ho;
+  const long long HoWo = (long long)Ho * Wo;
   if (N <= 0 || C <= 0 || N % C != 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 ||
-      blocks > 0x7fffffffLL)
+      (long long)(H + 3) * (W + 3) > 0x7fffffffLL ||  // a tap's offset fits an int
+      HoWo > 0x7fffffffLL - BLOCK * PIX || N / C > 65535 ||
+      (C + CH_GROUP - 1) / CH_GROUP > 65535)
     return (int)cudaErrorInvalidValue;
-  tent_bilinear_kernel<<<(unsigned)blocks, threads_for(Wo), 0, (cudaStream_t)stream>>>(
-      (const float*)planes, (const float*)ys, (const float*)xs, (float*)out, C, H, W, Ho,
-      Wo);
+  const dim3 grid((unsigned)((HoWo + BLOCK * PIX - 1) / (BLOCK * PIX)), N / C,
+                  (C + CH_GROUP - 1) / CH_GROUP);
+  tent_bilinear_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      (const float*)planes, (const float*)ys, (const float*)xs, (float*)out, C, H, W,
+      (int)HoWo);
   return (int)cudaGetLastError();
 }
 

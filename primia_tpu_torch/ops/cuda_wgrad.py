@@ -23,6 +23,7 @@ operands the wrapper had to copy into bfloat16 ``channels_last`` first
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 
@@ -32,11 +33,22 @@ import torch.nn.functional as F
 launches = {"conv3x3_wgrad": 0}
 layout_copies = {"conv3x3_wgrad": 0}
 
-# blocks the split of the pixel axis aims at: the 2 a 132-SM card holds per SM
-# (125 registers a thread, 256 threads a block)
-_TARGET_BLOCKS = 264
-_TILE = 128  # the kernel's M and N tile
-_STEP = 32   # the kernel's pixels a step: a split is a multiple of it
+# The kernel's geometry (csrc/wgrad.cu): boxes of 64 channels (one 128-byte
+# swizzle row a pixel). A block's tile is 192 x 192 of (M, N): the three row
+# taps of one x channel block, all read from one x box of hb + 2 rows, by
+# three consumer warpgroups, against three g boxes; one producer warp. A g
+# box's pixels are a multiple of wgmma's K of 16, and at most 112, so that
+# three stages fit the 227 KB of shared memory a block can have.
+_BOX_CHANNELS = 64
+_N_BOXES = 3           # g boxes a stage, one a column tap
+_K_STEP = 16
+_MAX_BOX_PIXELS = 112
+_ROW_BYTES = 128       # a box pixel's 64 bf16 channels
+_MAX_STAGES = 8
+_SMEM_LIMIT = 232448   # dynamic shared memory a block can have on sm_90
+_SMEM_EXTRA = 1024 + 2 * _MAX_STAGES * 8  # 1024-byte alignment, the mbarriers
+_TILE_BYTES = 3 * 64 * 195 * 4  # the epilogue's 192 x 192 tile at a pitch of 195 floats
+_SMS = 132             # H100 SXM
 
 
 def use_pallas_wgrad() -> bool:
@@ -64,9 +76,11 @@ def _lib():
     from primia_tpu_torch.ops._build import load_library
 
     lib = load_library("wgrad")
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.conv3x3_wgrad.argtypes = [vp, vp, vp, vp, ll, ci, ci, ci, ci, ci, ll, vp]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_wgrad.argtypes = [vp, vp, vp, vp] + [ci] * 10 + [vp]
     lib.conv3x3_wgrad.restype = ci
+    lib.conv3x3_wgrad_blocks_per_sm.argtypes = [ci]
+    lib.conv3x3_wgrad_blocks_per_sm.restype = ci
     lib.wgrad_error_string.argtypes = [ci]
     lib.wgrad_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,15 +95,105 @@ def _bf16_channels_last(t: torch.Tensor) -> torch.Tensor:
     return t.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
 
 
-def split_pixels(P: int, ci: int, co: int):
-    """(splits, pixels a split) of the kernel's K axis: as many blocks as
-    fill the card in one wave and no more (a second, part-filled wave
-    would double the time), each split a multiple of the kernel's step and
-    none empty."""
-    tiles = -(-3 * ci // _TILE) * -(-3 * co // _TILE)
-    splits = max(1, min(_TARGET_BLOCKS // tiles, -(-P // _STEP)))
-    chunk = -(-P // (splits * _STEP)) * _STEP
-    return -(-P // chunk), chunk
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """How one K7 launch cuts its work (see :func:`plan_wgrad`)."""
+    wb: int          # a box's pixels along W
+    hb: int          # and along H
+    nwb: int         # boxes an image along W
+    nhb: int         # and along H
+    boxes: int       # B * nhb * nwb, the K axis in boxes
+    tiles_m: int     # 192-row tiles of M: x's 64-channel blocks
+    tiles_n: int     # 192-column tiles of N: g's 64-channel blocks
+    splits: int      # blocks along K
+    per_split: int   # boxes a split (the last may have fewer)
+    stages: int      # the shared-memory ring's depth
+    smem: int        # dynamic shared memory a block, bytes
+    wave: int        # blocks the card holds at once
+
+    @property
+    def box_pixels(self) -> int:
+        return self.wb * self.hb
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+
+@functools.lru_cache(maxsize=None)
+def _box(H: int, W: int):
+    """(wb, hb): the box of wb x hb pixels, a multiple of 16 and at most
+    112, whose tiling of the image pads it the least; ties go to the larger
+    box, then to one within the image, then to the wider one (longer
+    contiguous rows). TMA fills a box's part outside the tensor with zeros."""
+    best = None
+    for wb in range(1, _MAX_BOX_PIXELS + 1):
+        for hb in range(1, _MAX_BOX_PIXELS // wb + 1):
+            if (wb * hb) % _K_STEP:
+                continue
+            padded = -(-W // wb) * wb * (-(-H // hb) * hb)
+            key = (padded, -wb * hb, wb > W or hb > H, -wb)
+            if best is None or key < best[0]:
+                best = (key, wb, hb)
+    return best[1], best[2]
+
+
+def _x_box_bytes(wb: int, hb: int) -> int:
+    """The x box (wb x (hb + 2) pixels) in shared memory, rounded up to the
+    swizzle's 1024-byte period."""
+    return -(-wb * (hb + 2) * _ROW_BYTES // 1024) * 1024
+
+
+def plan_wgrad(B: int, ci: int, co: int, H: int, W: int, sms: int = _SMS,
+               blocks_per_sm=lambda smem: 1) -> WgradPlan:
+    """K7's launch plan for x (B, ci, H, W) and g (B, co, H, W): the box
+    (:func:`_box`), the stages that fit beside it, the (M, N) tiles, and
+    the split of the boxes along K: as many blocks as fill the card in one
+    wave and no more (a second, part-filled wave would double the time),
+    none empty. ``blocks_per_sm(smem)`` is the kernel's occupancy at that
+    much dynamic shared memory (on the card, the CUDA occupancy API's
+    answer from the kernel's registers, threads and shared memory)."""
+    wb, hb = _box(H, W)
+    stage = _x_box_bytes(wb, hb) + _N_BOXES * wb * hb * _ROW_BYTES
+    stages = min(_MAX_STAGES, (_SMEM_LIMIT - _SMEM_EXTRA) // stage)
+    smem = max(stages * stage, _TILE_BYTES) + _SMEM_EXTRA
+    nwb, nhb = -(-W // wb), -(-H // hb)
+    boxes = B * nhb * nwb
+    tiles_m, tiles_n = -(-ci // _BOX_CHANNELS), -(-co // _BOX_CHANNELS)
+    wave = sms * max(1, blocks_per_sm(smem))
+    splits = max(1, min(wave // (tiles_m * tiles_n), boxes))
+    per_split = -(-boxes // splits)
+    return WgradPlan(wb=wb, hb=hb, nwb=nwb, nhb=nhb, boxes=boxes, tiles_m=tiles_m,
+                     tiles_n=tiles_n, splits=-(-boxes // per_split), per_split=per_split,
+                     stages=stages, smem=smem, wave=wave)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, smem: int) -> int:
+    with torch.cuda.device(device_index):
+        n = _lib().conv3x3_wgrad_blocks_per_sm(smem)
+    if n <= 0:
+        _raise_on(_lib(), -n)
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(index: int, B: int, ci: int, co: int, H: int, W: int) -> WgradPlan:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan_wgrad(B, ci, co, H, W, sms, lambda smem: _blocks_per_sm(index, smem))
+
+
+def card_plan(device: torch.device, B: int, ci: int, co: int, H: int, W: int) -> WgradPlan:
+    """:func:`plan_wgrad` for the card ``device``: its SM count, and the
+    kernel's occupancy from the CUDA occupancy API (planned once a shape)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _card_plan(index, B, ci, co, H, W)
+
+
+def _raise_on(lib, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad launch failed: CUDA error {err} "
+                           f"({lib.wgrad_error_string(err).decode()})")
 
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -114,7 +218,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     (zero outside the image), float32 (co, ci, 3, 3), for y = conv(x, w,
     stride 1, padding 1) and its cotangent g. The contract of the JAX
     package's ``conv3x3_wgrad_pallas`` in NCHW / OIHW. On CUDA, ci and co
-    must be multiples of 8 and B*H*W below 2^31."""
+    must be multiples of 8; the launch follows :func:`card_plan`."""
     _check(x, g)
     if x.device.type == "cpu":
         return conv3x3_wgrad_plain(x, g)
@@ -124,22 +228,17 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     co = g.shape[1]
     if ci % 8 or co % 8:
         raise ValueError(f"K7 takes channel counts that are multiples of 8, got {ci} and {co}")
-    P = B * H * W
-    if P >= 2 ** 31 - 64:
-        raise ValueError(f"K7 takes fewer than 2^31 pixels, got {P}")
     x, g = _bf16_channels_last(x), _bf16_channels_last(g)
-    splits, chunk = split_pixels(P, ci, co)
-    mpad, npad = -(-3 * ci // _TILE) * _TILE, -(-3 * co // _TILE) * _TILE
-    ws = torch.empty((splits, mpad, npad), dtype=torch.float32, device=x.device)
+    plan = card_plan(x.device, B, ci, co, H, W)
+    ws = torch.empty((plan.splits, co, ci, 3, 3), dtype=torch.float32, device=x.device)
     dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), P,
-                                H, W, ci, co, splits, chunk, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad launch failed: CUDA error {err} "
-                           f"({lib.wgrad_error_string(err).decode()})")
+        err = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), B, H,
+                                W, ci, co, plan.wb, plan.hb, plan.splits, plan.per_split,
+                                plan.stages, stream)
+    _raise_on(lib, err)
     launches["conv3x3_wgrad"] += 1
     return dw
 

@@ -86,7 +86,7 @@ def test_kernels_reject_non_cuda_devices_and_bad_shapes(cuda_device):
 TENT_SHAPES = [(200, 3, 224, 224), (3, 2, 60, 72)]
 
 
-def _tent_operands(shape, device, seed=11):
+def _tent_operands(shape, device, seed=11, far=False):
     B, C, H, W = shape
     rng = np.random.default_rng(seed)
     planes = torch.from_numpy(rng.random((B * C, H, W), dtype=np.float32)).to(device)
@@ -95,6 +95,9 @@ def _tent_operands(shape, device, seed=11):
     xs = rng.uniform(-3.0, W + 2.0, (B, H, W)).astype(np.float32)
     ys[:, ::7] = np.round(ys[:, ::7])
     xs[:, :, ::5] = np.round(xs[:, :, ::5])
+    if far:  # every third position well outside the plane, on either side
+        ys[:, :, ::3] = rng.uniform(-4.0 * H, 5.0 * H, ys[:, :, ::3].shape)
+        xs[:, ::3] = rng.uniform(-4.0 * W, 5.0 * W, xs[:, ::3].shape)
     return planes, torch.from_numpy(ys).to(device), torch.from_numpy(xs).to(device)
 
 
@@ -113,10 +116,16 @@ def test_tent_rows_matches_plain(cuda_device, shape, axis):
     assert cuda_tent.launches["tent_rows"] == before + 1
 
 
+# K2 also at one plane (C = 1), C above a thread's 4 planes, and Ho*Wo no
+# multiple of a block's 512 pixels, with positions far outside
+TENT_BILINEAR_SHAPES = TENT_SHAPES + [(2, 1, 37, 45), (3, 4, 60, 73), (2, 9, 33, 50)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", TENT_SHAPES)
+@pytest.mark.parametrize("shape", TENT_BILINEAR_SHAPES)
 def test_tent_bilinear_matches_plain(cuda_device, shape):
-    planes, ys, xs = _tent_operands(shape, cuda_device)
+    """Bit for bit, as K1."""
+    planes, ys, xs = _tent_operands(shape, cuda_device, far=shape not in TENT_SHAPES)
     before = cuda_tent.launches["tent_bilinear"]
     got = cuda_tent.tent_bilinear(planes, ys, xs, max_dy=4.0)
     torch.testing.assert_close(got, cuda_tent.tent_bilinear_plain(planes, ys, xs),
@@ -252,10 +261,12 @@ def _bf16_cl(shape, device, seed, scale=1.0, shift=0.0):
     return t.to(device=device, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
 
-# (B, ci, co, H, W): layer2's and layer3's train shapes, and ragged ones (B*H*W
-# not a multiple of the 32-pixel step, 3*ci or 3*co not of the 128 tile)
+# (B, ci, co, H, W): layer2's and layer3's train shapes, and ragged ones (H not
+# a multiple of the box's rows, W not of 16, channels not multiples of 64 or
+# under a box's 64, an M tile with one block)
 WGRAD_SHAPES = [(200, 128, 128, 28, 28), (200, 256, 256, 14, 14), (3, 64, 512, 9, 11),
-                (2, 512, 64, 5, 7), (1, 8, 16, 3, 3)]
+                (2, 512, 64, 5, 7), (1, 8, 16, 3, 3), (2, 72, 136, 13, 28),
+                (4, 128, 128, 7, 14)]
 
 
 @pytest.mark.cuda
@@ -278,6 +289,20 @@ def test_conv3x3_wgrad_matches_plain(cuda_device, shape):
     copies = cuda_wgrad.layout_copies["conv3x3_wgrad"]
     torch.testing.assert_close(cuda_wgrad.conv3x3_wgrad(x.contiguous(), g), got, rtol=0, atol=0)
     assert cuda_wgrad.layout_copies["conv3x3_wgrad"] == copies + (0 if x.is_contiguous() else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 128, 128, 28, 28), (2, 72, 136, 13, 28)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_wgrad_is_deterministic(cuda_device, shape):
+    """Two calls on the same operands give the same bits: the splits are
+    summed in a fixed order, with no atomics."""
+    from primia_tpu_torch.ops import cuda_wgrad
+
+    B, ci, co, H, W = shape
+    x, g = _bf16_cl((B, ci, H, W), cuda_device, 23), _bf16_cl((B, co, H, W), cuda_device, 24)
+    first = cuda_wgrad.conv3x3_wgrad(x, g)
+    assert torch.equal(cuda_wgrad.conv3x3_wgrad(x, g), first)
 
 
 @pytest.mark.cuda

@@ -70,12 +70,132 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
         cuda_wgrad.conv3x3_wgrad(xt, gt[:, :, :4])
 
 
-@pytest.mark.parametrize("P,ci,co", [(156_800, 128, 128), (39_200, 256, 256), (297, 64, 64),
-                                     (7, 512, 512)])
-def test_pixel_splits_cover_the_pixels_once(P, ci, co):
-    splits, chunk = cuda_wgrad.split_pixels(P, ci, co)
-    assert chunk % cuda_wgrad._STEP == 0 and splits * chunk >= P > (splits - 1) * chunk
-    assert splits <= 65535
+# (B, H, W, ci, co): the train step's layer2 and layer3, and ragged ones (H
+# not a multiple of the box's rows, W of 16, channels not of 64, channels
+# under a box's 64, one pixel row, a wide image)
+PLAN_SHAPES = [(200, 28, 28, 128, 128), (200, 14, 14, 256, 256), (3, 9, 11, 64, 64),
+               (1, 1, 7, 512, 512), (2, 13, 28, 72, 136), (4, 7, 14, 128, 128),
+               (1, 3, 3, 8, 16), (2, 5, 7, 512, 64), (200, 56, 56, 64, 64), (2, 3, 300, 16, 24)]
+
+
+def _boxes(plan, B):
+    """Every box of the plan's K axis, in the kernel's (image, box row, box
+    column) order: (b, h0, w0)."""
+    return [(j // (plan.nwb * plan.nhb), (j // plan.nwb) % plan.nhb * plan.hb,
+             j % plan.nwb * plan.wb) for j in range(plan.boxes)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: f"{s[0] * s[1] * s[2]}-{s[3]}-{s[4]}")
+def test_pixel_splits_cover_the_pixels_once(shape):
+    """K7's plan: its boxes cover every pixel once and stay within TMA's
+    limits; its splits cover every box once, none empty; its tiles cover
+    every (tap, 64-channel block) of M and of N once; its grid fits one
+    wave of the card (132 SMs, one block an SM)."""
+    B, H, W, ci, co = shape
+    plan = cuda_wgrad.plan_wgrad(B, ci, co, H, W)
+    # the box: 64 channels of 2 bytes (one 128-byte swizzle row), each
+    # extent at most 256, a multiple of wgmma's K of 16 pixels
+    assert cuda_wgrad._BOX_CHANNELS * 2 == 128
+    assert 1 <= plan.wb <= 256 and 1 <= plan.hb <= 256
+    assert plan.box_pixels % 16 == 0 and plan.box_pixels <= 112
+    cover = torch.zeros((B, H, W), dtype=torch.int32)
+    for b, h0, w0 in _boxes(plan, B):
+        cover[b, h0:h0 + plan.hb, w0:w0 + plan.wb] += 1
+    assert bool((cover == 1).all())
+    assert plan.boxes == B * plan.nhb * plan.nwb
+    # the splits
+    assert plan.splits * plan.per_split >= plan.boxes > (plan.splits - 1) * plan.per_split
+    assert 1 <= plan.splits <= 65535
+    # the tiles: the 3 row taps of one x block against the 3 column taps of
+    # one g block, every (tap, block) once
+    m = [(kh, tm) for tm in range(plan.tiles_m) for kh in range(3)]
+    n = [(kw, tn) for tn in range(plan.tiles_n) for kw in range(3)]
+    assert sorted(m) == [(kh, c) for kh in range(3) for c in range(-(-ci // 64))]
+    assert sorted(n) == [(kw, c) for kw in range(3) for c in range(-(-co // 64))]
+    # one wave; at least 2 stages of an x box and 3 g boxes in the shared
+    # memory
+    tiles = plan.tiles_m * plan.tiles_n
+    assert plan.wave == 132
+    assert plan.blocks <= max(plan.wave, tiles)
+    most = max(1, min(plan.boxes, plan.wave // tiles))
+    assert plan.splits <= most and plan.per_split == -(-plan.boxes // most)
+    assert 2 <= plan.stages and plan.smem <= 232448
+    x_box = plan.wb * (plan.hb + 2) * 128
+    assert plan.smem >= plan.stages * (x_box + 3 * plan.box_pixels * 128)
+
+
+def test_plan_fills_the_wave_its_occupancy_gives():
+    """Two blocks an SM double the wave, so the train step's layer2 call
+    takes half the boxes a split (22 of its 1,400, in 64 splits: none
+    empty); the occupancy is asked at the plan's own shared memory."""
+    asked = []
+    one = cuda_wgrad.plan_wgrad(200, 128, 128, 28, 28)
+    two = cuda_wgrad.plan_wgrad(200, 128, 128, 28, 28, sms=132,
+                                blocks_per_sm=lambda smem: asked.append(smem) or 2)
+    assert asked == [one.smem]
+    assert (one.tiles_m, one.tiles_n, one.splits, one.per_split, one.blocks) == (2, 2, 33, 43, 132)
+    assert (two.wave, two.per_split, two.splits, two.blocks) == (264, 22, 64, 256)
+
+
+def _box_of(t, c0, w0, h0, b, wb, hb):
+    """TMA's box of ``t`` (B, C, H, W): 64 channels from c0, hb rows from
+    h0, wb columns from w0 of image b, zero outside the tensor, as
+    (hb*wb pixels in (h, w) order, 64)."""
+    _, C, H, W = t.shape
+    box = torch.zeros((64, hb, wb))
+    cs, ce, hs, he, ws, we = max(c0, 0), min(c0 + 64, C), max(h0, 0), min(h0 + hb, H), \
+        max(w0, 0), min(w0 + wb, W)
+    if cs < ce and hs < he and ws < we:
+        box[cs - c0:ce - c0, hs - h0:he - h0, ws - w0:we - w0] = t[b, cs:ce, hs:he, ws:we]
+    return box.reshape(64, hb * wb).T
+
+
+def _tiled_sum(x, g, plan):
+    """The kernel's sum in plain PyTorch: for each split, tile and box, the
+    product of the x box (rows h0-1 .. h0+hb, read from row kh for tap kh)
+    and the g boxes (columns from w0+1-kw) into the split's dW; then the
+    reduce: the splits summed in order."""
+    B, ci, H, W = x.shape
+    co = g.shape[1]
+    x, g = x.float(), g.float()
+    ws = torch.zeros((plan.splits, co, ci, 3, 3))
+    boxes = _boxes(plan, B)
+    rows = plan.box_pixels
+    for s in range(plan.splits):
+        for b, h0, w0 in boxes[s * plan.per_split:(s + 1) * plan.per_split]:
+            for tm in range(plan.tiles_m):
+                xbox = _box_of(x, tm * 64, w0, h0 - 1, b, plan.wb, plan.hb + 2)
+                for tn in range(plan.tiles_n):
+                    for kh in range(3):
+                        a = xbox[kh * plan.wb:kh * plan.wb + rows]
+                        for kw in range(3):
+                            gb = _box_of(g, tn * 64, w0 + 1 - kw, h0, b, plan.wb, plan.hb)
+                            part = (a.T @ gb).T  # (o, c) of the two 64-channel blocks
+                            oc, cc = min(64, co - tn * 64), min(64, ci - tm * 64)
+                            ws[s, tn * 64:tn * 64 + oc, tm * 64:tm * 64 + cc, kh, kw] += \
+                                part[:oc, :cc]
+    total = ws[0]
+    for s in range(1, plan.splits):
+        total = total + ws[s]
+    return total
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 28, 72, 136), (4, 7, 14, 128, 128), (1, 3, 3, 8, 16),
+                                   (3, 9, 11, 64, 64), (2, 5, 7, 24, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tiled_sum_of_the_plan_matches_plain(shape):
+    """The plan's boxes, shifts, zero fill, tiles and splits, run in plain
+    PyTorch (a card of 5 SMs, so that K splits unevenly), give
+    conv3x3_wgrad_plain's dW within 1e-5 of its max (float32 sums of the
+    same products in another order)."""
+    B, H, W, ci, co = shape
+    rng = np.random.default_rng(sum(shape))
+    _, x = _bf16_pair(rng, (B, H, W, ci))
+    _, g = _bf16_pair(rng, (B, H, W, co))
+    plan = cuda_wgrad.plan_wgrad(B, ci, co, H, W, sms=5)
+    want = cuda_wgrad.conv3x3_wgrad_plain(x, g)
+    torch.testing.assert_close(_tiled_sum(x, g, plan), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("ci,co", [(8, 16), (128, 128), (512, 512)])
