@@ -19,20 +19,20 @@ Phases, each reported on its own line; any failure exits nonzero:
                   events), plain_ms, and bound_ms (each input byte read and
                   each output byte written once at 3.35 TB/s, or the f32
                   operations at 67 TFLOP/s, whichever is larger).
-4. tent_rows      K1 against its plain version, max |d| <= 1e-6, at the
+4. tent_rows      K1 against its plain version, bit for bit, at the
                   canonical train shape (200 images x 3 channels of 224x224)
                   for each of the train step's four passes (the affine warp's
                   row and column pass from real ``_affine_mats`` draws, the
                   dense warp's column and row pass from real elastic + grid
-                  displacement fields) and at a ragged (3 x 2 planes of
-                  60x72); the same times as above, and library_ms, the time
+                  displacement fields), at a ragged (3 x 2 planes of 60x72)
+                  and at 2 x 1 planes of 37x45 with positions up to 4 planes
+                  past either edge; the same times as above, and library_ms, the time
                   of ``F.grid_sample(bilinear, zeros, align_corners=True)``
                   computing the same function (a yardstick the port never
                   calls).
-5. tent_bilinear  K2 likewise, at the canonical shape (the dense warp's and
-                  the affine warp's gather coordinates), the ragged one, and
-                  2 x 1 planes of 37x45 with positions up to 4 planes past
-                  either edge.
+5. tent_bilinear  K2 likewise (max |d| <= 1e-6), at the canonical shape (the
+                  dense warp's and the affine warp's gather coordinates) and
+                  the two others.
 6. serve          slice 1's main path: the canonical recipe
                   (configs/torch/pneumonia-resnet-pretrained.ini: ResNet-18,
                   3 channels, 224 px, CLAHE on) with seeded random weights,
@@ -77,11 +77,22 @@ Phases, each reported on its own line; any failure exits nonzero:
                   library's registers, shared memory and spills (cuobjdump
                   -res-usage) and the kernel's SASS opcode counts, which must
                   hold HGMMA and UTMALDG (wgmma fed by TMA).
-10. bn            K8, both BN channel sums, against their plain versions
-                  (within 1e-5 of the sums of absolute values) at the stem's
-                  200 x 64 x 112 x 112, layer4's 200 x 512 x 7 x 7 and a ragged
-                  shape; library_ms ``torch.batch_norm_stats`` and
-                  ``torch.batch_norm_backward_reduce``.
+10. bn            the switched batch norm's six launches (three a
+                  direction) against their plain versions on the same inputs,
+                  at the stem's 200 x 64 x 112 x 112, layer3's 200 x 256 x 14
+                  x 14, layer4's 200 x 512 x 7 x 7 and a ragged shape: K8's
+                  sums and gradient sums (their partials' sum within 1e-5 of
+                  the sums of absolute values); the two finalizes (their sums
+                  within 1e-6 of the partials' absolute sums; mean, var, the
+                  coefficients and the running statistics within 1e-6 of
+                  their largest |value|); apply and dx (y and dx within one
+                  bfloat16 ulp); every launch bit-identical over two calls.
+                  Times and bounds per launch; library_ms
+                  ``torch.batch_norm_stats`` (sums), ``batch_norm_elemt``
+                  (apply), ``batch_norm_backward_reduce`` (gradient sums) and
+                  ``batch_norm_backward_elemt`` (dx), none for the
+                  finalizes; and a whole ``bn_train`` forward + backward
+                  beside ``F.batch_norm``'s.
 11. noise         K5, the Gaussian-noise kernel, on its own path: the JAX
                   package calls it from no entry point, so its path is one
                   call at the canonical train batch (200 x 3 x 224 x 224 f32)
@@ -108,10 +119,13 @@ Phases, each reported on its own line; any failure exits nonzero:
 14. train_optin  slice 2b's main path: the train CLI as in phase 7 under the
                   JAX package's switches PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1,
                   counters set to 0 just before and read just after (K7 6
-                  times a step, each K8 sum 20 times, K1 and CLAHE as in
-                  phase 7); the wrappers' layout copies; 24 timed steps of
-                  the switched step beside 24 of the default one (the
-                  switched step's p50 and K7's device ms a step); one bf16
+                  times a step, each of the BN's six launches 20 times, K1
+                  and CLAHE as in phase 7); the wrappers' layout copies; 24
+                  timed steps of the switched step beside 24 of the default
+                  one (p50, idle share, K7's and the BN kernels' device ms a
+                  step, the CPU-side aten:: ops a step from the profiler, and
+                  the device ms a step the switched step spends beyond the
+                  default, by category); one bf16
                   step with augmentation and mixup off, switched against
                   default from the same weights and batch (loss within 1e-2
                   relative; the fc's gradients within 2e-2 of max; K7's conv
@@ -177,17 +191,27 @@ KERNELS = {
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
                  "kernel": ("dcf_sign_kernel",), "source": "primia_tpu_torch/csrc/dcf.cu"},
     # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
-    # function's time counts each kernel named here (K7's and K8's second,
-    # reducing pass included)
+    # function's time counts each kernel named here (K7's second, reducing
+    # pass included)
     "conv3x3_wgrad": {"replaces": "primia_tpu/ops/pallas_wgrad.py:122", "path": "train_optin",
                       "kernel": ("conv3x3_wgrad_kernel", "conv3x3_wgrad_reduce_kernel"),
                       "source": "primia_tpu_torch/csrc/wgrad.cu"},
+    # the switched batch norm, three launches a direction: K8's sums, and the
+    # finalize and elementwise passes that bn_train's custom_vjp leaves to
+    # XLA on the TPU (their "replaces" names those lines)
     "bn_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:59", "path": "train_optin",
-                "kernel": ("bn_sums_kernel", "bn_partials_reduce_kernel"),
-                "source": "primia_tpu_torch/csrc/bn.cu"},
+                "kernel": ("bn_sums_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+    "bn_finalize": {"replaces": "primia_tpu/ops/pallas_bn.py:254", "path": "train_optin",
+                    "kernel": ("bn_finalize_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+    "bn_apply": {"replaces": "primia_tpu/ops/pallas_bn.py:261", "path": "train_optin",
+                 "kernel": ("bn_apply_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_grad_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:75", "path": "train_optin",
-                     "kernel": ("bn_grad_sums_kernel", "bn_partials_reduce_kernel"),
-                     "source": "primia_tpu_torch/csrc/bn.cu"},
+                     "kernel": ("bn_grad_sums_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+    "bn_grad_finalize": {"replaces": "primia_tpu/ops/pallas_bn.py:276", "path": "train_optin",
+                         "kernel": ("bn_grad_finalize_kernel",),
+                         "source": "primia_tpu_torch/csrc/bn.cu"},
+    "bn_dx": {"replaces": "primia_tpu/ops/pallas_bn.py:285", "path": "train_optin",
+              "kernel": ("bn_dx_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
     # K5 is on no path of either package (only the JAX package's own test
     # calls it), so its path is its own phase: one call at the canonical
     # train batch, as the augmentation's GaussNoise would make it
@@ -197,6 +221,8 @@ KERNELS = {
 }
 KERNEL_NAMES = sorted({k for meta in KERNELS.values() for k in meta["kernel"]}, key=len,
                       reverse=True)
+BN_KERNELS = tuple(k for meta in KERNELS.values() if meta["source"].endswith("bn.cu")
+                   for k in meta["kernel"])
 # K4's work (csrc/dcf.cu): a Threefry-2x32-20 block's 20 rotations (funnel
 # shifts) and 20 xors issue only on an SM's 64 INT32 lanes; its adds may
 # also issue on the FMA pipe as IMAD, so they do not raise the least time.
@@ -278,8 +304,7 @@ def device_ms_by_category(avgs, iters):
         # K7 and K8 before the generic match, which would take "*wgrad*"
         elif "conv3x3_wgrad" in k:
             cat = "wgrad_kernel"
-        elif any(n in k for n in ("bn_sums_kernel", "bn_grad_sums_kernel",
-                                  "bn_partials_reduce_kernel")):
+        elif any(n in k for n in BN_KERNELS):
             cat = "bn_kernels"
         elif any(w in k for w in ("xmma", "cudnn", "conv", "gemm", "Nhwc", "Nchw", "cutlass",
                                   "wgrad", "dgrad", "fprop", "implicit")):
@@ -428,19 +453,21 @@ def tent_cases(torch, seed):
     ys = torch.rand((B, H, W), generator=g, device=dev) * (H + 5.0) - 3.0
     xs = torch.rand((B, H, W), generator=g, device=dev) * (W + 5.0) - 3.0
     yield (f"{B}x{C}x{H}x{W}", False, planes, [("rows", xs, 2), ("cols", ys, 1)], [("gather", ys, xs)])
-    # K2 alone at one plane an image, a pixel count no multiple of a block's
-    # 512, and positions up to 4 planes past either edge
+    # one plane an image, a pixel count no multiple of a block's 512, and
+    # positions up to 4 planes past either edge
     B, C, H, W = 2, 1, 37, 45
     planes = torch.rand((B * C, H, W), generator=g, device=dev)
     ys = torch.rand((B, H, W), generator=g, device=dev) * (9.0 * H) - 4.0 * H
     xs = torch.rand((B, H, W), generator=g, device=dev) * (9.0 * W) - 4.0 * W
-    yield (f"{B}x{C}x{H}x{W}", False, planes, [], [("gather_far", ys, xs)])
+    yield (f"{B}x{C}x{H}x{W}", False, planes, [("rows_far", xs, 2), ("cols_far", ys, 1)],
+           [("gather_far", ys, xs)])
 
 
 def phase_tent(torch, seed):
-    """Phases 4 and 5: K1 and K2 against their plain versions on the card.
-    Returns their records: at the canonical shape, the mean over the train
-    step's four K1 passes, and K2 at the dense warp's coordinates."""
+    """Phases 4 and 5: K1 (bit for bit) and K2 (max |d| <= 1e-6) against
+    their plain versions on the card. Returns their records: at the
+    canonical shape, the mean over the train step's four K1 passes, and K2
+    at the dense warp's coordinates."""
     import torch.nn.functional as F
 
     from primia_tpu_torch.ops import cuda_tent as ct
@@ -470,8 +497,10 @@ def phase_tent(torch, seed):
         for name, case, kern, plain, grid, (bound_ms, bound_by) in runs:
             got = kern()
             torch.cuda.synchronize()
-            err = float((got - plain()).abs().max())
-            check(err <= 1e-6, f"{name} differs from plain at {shape} {case}: {err}")
+            want = plain()
+            err = float((got - want).abs().max())
+            check(err <= 1e-6 and (name != "tent_rows" or torch.equal(got, want)),
+                  f"{name} differs from plain at {shape} {case}: {err}")
             rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
             img = planes.reshape(B, N // B, H, W)
             lib = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
@@ -710,13 +739,33 @@ def phase_wgrad(torch, seed):
     return {**mean_record(records), "max_abs_err": worst}
 
 
+BN_TRAIN_SHAPES = {"stem": (TRAIN_BATCH, 64, 112, 112), "layer3": (TRAIN_BATCH, 256, 14, 14),
+                   "layer4": (TRAIN_BATCH, 512, 7, 7)}
+BN_EPS, BN_MOMENTUM = 1e-5, 0.1
+BN_LAUNCHES = ("bn_sums", "bn_finalize", "bn_apply", "bn_grad_sums", "bn_grad_finalize", "bn_dx")
+
+
+def _bf16_ulp(torch, t):
+    """The spacing of bfloat16 values at each |t| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
 def phase_bn(torch, seed):
-    """Phase 10: K8 (both sums) against the plain versions on the card, at the train
-    step's largest and smallest BN activations (the stem's 64 x 112 x 112
-    and layer4's 512 x 7 x 7, batch 200) and a ragged (3, 24, 5, 7). Each
-    sum within 1e-5 of the same sum of absolute values (float32 sums of
-    the same bf16 values in other orders). Returns the two records, each
-    the mean of the two train-step shapes."""
+    """Phase 10: the switched batch norm's six launches against their plain
+    versions on the same inputs, at the train step's stem, layer3 and
+    layer4 BN activations (batch 200) and a ragged (3, 24, 5, 7). K8's sums
+    and gradient sums: their partials summed within 1e-5 of the same sums
+    of absolute values (float32 sums of the same bf16 values in other
+    orders). The finalizes: their own sums within 1e-6 of the partials'
+    absolute sums; from those sums mean, var, r, inv, off, the running
+    statistics, dgamma, A, B and D within 1e-6 of each row's largest
+    |value| (the same roundings; rsqrt may differ in its last bit). apply
+    and dx: y and dx within one bf16 ulp. Every output bit-identical over
+    two calls. Times per launch beside its bound and its library
+    yardstick, and a whole forward + backward beside F.batch_norm's.
+    Returns the six records, each the mean of the three train shapes."""
+    import torch.nn.functional as F
+
     from primia_tpu_torch.ops import cuda_bn as cb
 
     dev = torch.device("cuda")
@@ -726,39 +775,131 @@ def phase_bn(torch, seed):
         t = torch.randn(shape, generator=g, device=dev) * scale + shift
         return t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
-    records = {"bn_sums": [], "bn_grad_sums": []}
-    worst = {"bn_sums": 0.0, "bn_grad_sums": 0.0}
-    for shape in ((TRAIN_BATCH, 64, 112, 112), (TRAIN_BATCH, 512, 7, 7), (3, 24, 5, 7)):
+    def vec(C, lo, hi):
+        return torch.rand(C, generator=g, device=dev) * (hi - lo) + lo
+
+    records = {n: [] for n in BN_LAUNCHES}
+    worst = {n: 0.0 for n in BN_LAUNCHES}
+    for label, shape in [*BN_TRAIN_SHAPES.items(), ("ragged", (3, 24, 5, 7))]:
         x, gy = operand(shape, 1.0, 0.5), operand(shape, 0.1, 0.05)
         C = shape[1]
-        mean, invstd = torch.batch_norm_stats(x, 1e-5)
-        weight = torch.ones(C, device=dev)
+        n = x.numel() // C
+        gamma, beta, rm, rv = vec(C, 0.5, 1.5), vec(C, -0.2, 0.2), vec(C, -0.1, 0.1), vec(C, 0.5, 1.5)
+        rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+
+        part = cb.channel_partials(x)
+        stats = cb.bn_finalize(part, gamma, beta, n, BN_EPS, rm_k, rv_k, BN_MOMENTUM)
+        _, _, mean, var, r, inv, off = stats.unbind(0)
+        y = cb.bn_apply(x, inv, off)
+        gpart = cb.grad_channel_partials(gy, x)
+        coef = cb.bn_grad_finalize(gpart, gamma, mean, r, n)
+        A, B, D = coef[3], coef[4], coef[5]
+        dx = cb.bn_dx(gy, x, A, B, D)
+        torch.cuda.synchronize()
+
+        def rel(got, want):
+            return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(got.reshape(-1, C), want.reshape(-1, C)))
+
+        errs = {}
+        for name, p, plain, mag in (
+                ("bn_sums", part, cb.channel_sums_plain(x), cb.channel_sums_plain(x.abs())),
+                ("bn_grad_sums", gpart, cb.grad_channel_sums_plain(gy, x),
+                 cb.grad_channel_sums_plain(gy.abs(), x.abs()))):
+            d = (p.sum(0) - torch.stack(plain)).abs()
+            check(bool((d <= 1e-5 * torch.stack(mag) + 1e-6).all()),
+                  f"{name} differs from plain at {shape}: max |d| {float(d.max())}")
+            errs[name] = float(d.max())
+        for name, got, p in (("bn_finalize", stats, part), ("bn_grad_finalize", coef, gpart)):
+            d = (got[:2] - p.sum(0)).abs()
+            check(bool((d <= 1e-6 * p.abs().sum(0) + 1e-9).all()),
+                  f"{name}'s sums differ from the partials' at {shape}: max |d| {float(d.max())}")
+        want = cb.bn_finalize_plain(stats[:2], gamma, beta, n, BN_EPS, rm_p, rv_p, BN_MOMENTUM)
+        want_g = cb.bn_grad_finalize_plain(coef[:2], gamma, mean, r, n)
+        errs["bn_finalize"] = max(rel(stats[2:], want[2:]), rel(rm_k, rm_p), rel(rv_k, rv_p))
+        errs["bn_grad_finalize"] = rel(coef[2:], want_g[2:])
+        for name in ("bn_finalize", "bn_grad_finalize"):
+            check(errs[name] <= 1e-6, f"{name} differs from plain at {shape}: {errs[name]} "
+                  "of a row's max")
+        for name, got, ref in (("bn_apply", y, cb.bn_apply_plain(x, inv, off)),
+                               ("bn_dx", dx, cb.bn_dx_plain(gy, x, A, B, D))):
+            d = (got.float() - ref.float()).abs()
+            check(got.is_contiguous(memory_format=torch.channels_last)
+                  and bool((d <= _bf16_ulp(torch, ref)).all()),
+                  f"{name} differs from plain at {shape} by more than a bf16 ulp: {float(d.max())}")
+            errs[name] = float(d.max())
+        again = (cb.channel_partials(x), cb.bn_finalize(part, gamma, beta, n, BN_EPS),
+                 cb.bn_apply(x, inv, off), cb.grad_channel_partials(gy, x),
+                 cb.bn_grad_finalize(gpart, gamma, mean, r, n), cb.bn_dx(gy, x, A, B, D))
+        first = (part, stats, y, gpart, coef, dx)
+        check(all(torch.equal(a, b) for a, b in zip(again, first)),
+              f"the BN launches give other bits on a second call at {shape}")
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+
+        # times; the library yardsticks compute the same functions in PyTorch
+        # (the port never calls them): batch_norm_stats the sums and the
+        # finalize's mean and invstd, backward_reduce the gradient sums and
+        # the gradients of gamma and beta
+        invstd = torch.rsqrt(var + BN_EPS)
+        sum_dy, sum_dy_xmu = coef[0].clone(), (coef[1] - mean * coef[0]).contiguous()
+        count = torch.full((1,), n, dtype=torch.int32, device=dev)
+        pb, vb = 4 * part.numel(), 4 * C
         cases = (
-            ("bn_sums", lambda: cb.channel_sums(x), lambda: cb.channel_sums_plain(x),
-             lambda: cb.channel_sums_plain(x.abs()), lambda: torch.batch_norm_stats(x, 1e-5),
-             2 * x.numel() + 8 * C, 3 * x.numel()),
-            ("bn_grad_sums", lambda: cb.grad_channel_sums(gy, x),
+            ("bn_sums", lambda: cb.channel_partials(x), lambda: cb.channel_sums_plain(x),
+             lambda: torch.batch_norm_stats(x, BN_EPS), bound(2 * x.numel() + 8 * C, 3 * x.numel())),
+            ("bn_finalize",
+             lambda: cb.bn_finalize(part, gamma, beta, n, BN_EPS, rm_k, rv_k, BN_MOMENTUM),
+             lambda: cb.bn_finalize_plain(part.sum(0), gamma, beta, n, BN_EPS, rm_p, rv_p,
+                                          BN_MOMENTUM),
+             None, bound(pb + 7 * vb + 6 * vb, part.numel() + 12 * C)),
+            ("bn_apply", lambda: cb.bn_apply(x, inv, off), lambda: cb.bn_apply_plain(x, inv, off),
+             lambda: torch.batch_norm_elemt(x, gamma, beta, mean, invstd, BN_EPS),
+             bound(4 * x.numel() + 2 * vb, 2 * x.numel())),
+            ("bn_grad_sums", lambda: cb.grad_channel_partials(gy, x),
              lambda: cb.grad_channel_sums_plain(gy, x),
-             lambda: cb.grad_channel_sums_plain(gy.abs(), x.abs()),
-             lambda: torch.batch_norm_backward_reduce(gy, x, mean, invstd, weight, True, True,
+             lambda: torch.batch_norm_backward_reduce(gy, x, mean, invstd, gamma, True, True,
                                                       True),
-             4 * x.numel() + 8 * C, 3 * x.numel()))
-        for name, kern, plain, magnitude, lib, nbytes, nops in cases:
-            got = kern()
-            torch.cuda.synchronize()
-            err = 0.0
-            for a, b, m in zip(got, plain(), magnitude()):
-                d = (a - b).abs()
-                check(bool((d <= 1e-5 * m + 1e-6).all()),
-                      f"{name} differs from plain at {shape}: max |d| {float(d.max())}")
-                err = max(err, float(d.max()))
-            worst[name] = max(worst[name], err)
-            r = timed_record(torch, name, kern, plain, lib, bound(nbytes, nops))
-            _say_times(name, r, shape="x".join(map(str, shape)), max_abs_err=err,
-                       gb_per_s=f"{nbytes / (r['ms'] * 1e-3) / 1e9:.1f}")
-            if shape[0] == TRAIN_BATCH:
-                records[name].append(r)
-    return {n: {**mean_record(rs), "max_abs_err": worst[n]} for n, rs in records.items()}
+             bound(4 * x.numel() + 8 * C, 3 * x.numel())),
+            ("bn_grad_finalize", lambda: cb.bn_grad_finalize(gpart, gamma, mean, r, n),
+             lambda: cb.bn_grad_finalize_plain(gpart.sum(0), gamma, mean, r, n), None,
+             bound(4 * gpart.numel() + 6 * vb + 3 * vb, gpart.numel() + 12 * C)),
+            ("bn_dx", lambda: cb.bn_dx(gy, x, A, B, D), lambda: cb.bn_dx_plain(gy, x, A, B, D),
+             lambda: torch.batch_norm_backward_elemt(gy, x, mean, invstd, gamma, sum_dy,
+                                                     sum_dy_xmu, count),
+             bound(6 * x.numel() + 3 * vb, 4 * x.numel())))
+        for name, kern, plain, lib, bnd in cases:
+            try:  # a yardstick PyTorch refuses at these operands is none
+                lib is None or lib()
+            except (RuntimeError, TypeError) as e:
+                say(name, shape="x".join(map(str, shape)), library="refused",
+                    error=json.dumps(str(e).splitlines()[0]))
+                lib = None
+            rt = timed_record(torch, name, kern, plain, lib, bnd)
+            _say_times(name, rt, shape="x".join(map(str, shape)), layer=label,
+                       max_abs_err=errs[name], deterministic="yes")
+            if label in BN_TRAIN_SHAPES:
+                records[name].append(rt)
+
+        # a whole forward + backward: the port's six launches, and F.batch_norm
+        # (cuDNN's or PyTorch's own kernels) on the same operands
+        xg, gg, bg = (t.detach().clone().requires_grad_(True) for t in (x, gamma, beta))
+
+        def port():
+            yy, _, _ = cb.bn_train(xg, gg, bg, BN_EPS, rm_k, rv_k, BN_MOMENTUM)
+            return torch.autograd.grad(yy, (xg, gg, bg), gy)
+
+        def library():
+            yy = F.batch_norm(xg, rm_p, rv_p, gg, bg, training=True, momentum=BN_MOMENTUM,
+                              eps=BN_EPS)
+            return torch.autograd.grad(yy, (xg, gg, bg), gy)
+
+        port_ms, lib_ms = cuda_ms(torch, port, 20), cuda_ms(torch, library, 20)
+        whole_bound = bound(16 * x.numel(), 0)[0]
+        say("bn_train", shape="x".join(map(str, shape)), layer=label,
+            forward_backward_ms=f"{port_ms:.6f}", f_batch_norm_ms=f"{lib_ms:.6f}",
+            bound_ms=f"{whole_bound:.6f}", bound_by="bytes")
+    return {k: {**mean_record(rs), "max_abs_err": worst[k]} for k, rs in records.items()}
 
 
 # K5's work an element besides its 8 bytes (csrc/noise.cu): Philox-4x32-10's
@@ -1118,9 +1259,10 @@ def time_steps(torch, np, run, phase, profile_out, tag):
     """``TIMED_STEPS`` train steps ``run(i)`` after 3 warm-up steps: p50
     and p75 of the host clock around each synchronised step, img/s, peak
     memory, and from the profiler over 3 steps the device ms a step by
-    category and the idle share (the table goes beside ``profile_out``
-    with ``tag`` before the suffix). Returns (p50 ms, device ms by
-    category)."""
+    category, the idle share and the CPU-side ``aten::`` ops a step (every
+    call, nested ones included; the table goes beside ``profile_out`` with
+    ``tag`` before the suffix). Returns (p50 ms, device ms by category,
+    aten ops a step, idle share)."""
     for i in range(3):
         run(i)
     torch.cuda.synchronize()
@@ -1141,14 +1283,16 @@ def time_steps(torch, np, run, phase, profile_out, tag):
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
     cats = {k: v / n_prof for k, v in device_ms_by_category(avgs, 1).items()}
+    aten_ops = sum(e.count for e in avgs if e.key.startswith("aten::")) / n_prof
     busy = sum(cats.values())
     idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
     say(phase, batch=TRAIN_BATCH, steps_timed=len(step_ms), step_ms_p50=f"{q[0]:.4f}",
         step_ms_p75=f"{q[1]:.4f}", img_per_s_p50=f"{TRAIN_BATCH / (q[0] * 1e-3):.2f}",
         device_busy_ms_per_step=f"{busy:.4f}", idle_share=idle,
-        peak_memory_gb=f"{peak_gb:.3f}", compute_dtype="bfloat16")
+        aten_ops_per_step=f"{aten_ops:.1f}", peak_memory_gb=f"{peak_gb:.3f}",
+        compute_dtype="bfloat16")
     say(phase, device_ms_per_step=json.dumps({k: round(v, 6) for k, v in cats.items()}))
-    return q[0], cats
+    return q[0], cats, aten_ops, idle
 
 
 def phase_train(torch, seed, work, profile_out):
@@ -1308,10 +1452,12 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
     """Phase 14: slice 2b's main path, the train step under the JAX
     package's switches PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1: the train CLI as
     in phase 7, counters set to 0 just before and read just after (K7 6
-    times a step, each K8 sum 20 times, K1 and CLAHE as before, K2 never:
-    the canonical affine ranges are two-pass safe, so the one-pass warp
-    is not reached); the layout copies the wrappers made; 24 timed steps
-    of the switched step beside 24 of the default one, on one model; then
+    times a step, each of the BN's six launches 20 times, K1 and CLAHE as
+    before, K2 never: the canonical affine ranges are two-pass safe, so the
+    one-pass warp is not reached); the layout copies the wrappers made; 24
+    timed steps of the switched step beside 24 of the default one, on one
+    model, with their aten ops a step and the device ms the switched step
+    spends beyond the default by category; then
     one bfloat16 step with augmentation and mixup off from the same
     weights and batch of 200, switched against default (loss within 1e-2
     relative; the fc's weight and bias gradients within 2e-2 of their max;
@@ -1359,8 +1505,8 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
         os.chdir(cwd)
     (work / "train_optin_cli.log").write_text(out.getvalue())
     want = idle_launches(tent_rows=4 * steps, clahe_lut=steps, clahe_apply=steps,
-                         conv3x3_wgrad=K7_PER_STEP * steps, bn_sums=K8_PER_STEP * steps,
-                         bn_grad_sums=K8_PER_STEP * steps)
+                         conv3x3_wgrad=K7_PER_STEP * steps,
+                         **{k: K8_PER_STEP * steps for k in BN_LAUNCHES})
     check(launches == want, f"switched train CLI launches {launches}, expected {want}")
     check(len(list((cli_dir / "model_weights").glob("final_*.pt"))) == 1 and np.isfinite(best),
           f"switched train CLI: best objective {best}, or no final checkpoint")
@@ -1375,9 +1521,15 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
         with switches(*on):
             times[label] = time_steps(torch, np, ctx["run"], f"train_optin.{label}",
                                       profile_out, f".train_optin.{label}")
-    say("train_optin", switched_over_default_p50=f"{times['switched'][0] / times['default'][0]:.4f}",
-        switched_step_ms_p50=f"{times['switched'][0]:.4f}",
-        k7_device_ms_per_step=f"{times['switched'][1]['wgrad_kernel']:.6f}")
+    (p_s, cats_s, ops_s, idle_s), (p_d, cats_d, ops_d, idle_d) = times["switched"], times["default"]
+    say("train_optin", switched_over_default_p50=f"{p_s / p_d:.4f}",
+        switched_step_ms_p50=f"{p_s:.4f}", default_step_ms_p50=f"{p_d:.4f}",
+        switched_idle_share=idle_s, default_idle_share=idle_d,
+        k7_device_ms_per_step=f"{cats_s['wgrad_kernel']:.6f}",
+        bn_device_ms_per_step=f"{cats_s['bn_kernels']:.6f}",
+        switched_aten_ops_per_step=f"{ops_s:.1f}", default_aten_ops_per_step=f"{ops_d:.1f}",
+        switched_minus_default_device_ms=json.dumps(
+            {k: round(cats_s[k] - cats_d[k], 6) for k in cats_s}))
 
     # one bfloat16 step, augmentation and mixup off, from the same weights and batch
     args = Arguments.from_ini(ctx["ini"])
@@ -1429,7 +1581,7 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
         loss_rel_diff=abs(loss_d - loss_f) / abs(loss_f), **noise)
     for label, (k7, k8) in (("wgrad", (K7_PER_STEP, 0)), ("all", (K7_PER_STEP, K8_PER_STEP))):
         loss, grads, stats, n = res[label]
-        check((n["conv3x3_wgrad"], n["bn_sums"], n["bn_grad_sums"]) == (k7, k8, k8),
+        check(n["conv3x3_wgrad"] == k7 and all(n[k] == k8 for k in BN_LAUNCHES),
               f"one {label} step launched {n}")
         lrel = abs(loss - loss_d) / abs(loss_d)
         check(np.isfinite(loss) and lrel <= 1e-2, f"{label} step loss {loss} vs default {loss_d}")

@@ -24,21 +24,20 @@
 //     row form    out[n,i,j] = v(i, k0)(1-f) + v(i, k0+1) f,  q = qs[b,i,j]
 //     column form out[n,i,j] = v(k0, j)(1-f) + v(k0+1, j) f,  q = ps[b,i,j]
 //   with k0 = floor(q), f = q - k0 and v = 0 outside the plane, which gives
-//   zero fill outside [-1, L] (L = W or H), the TPU kernel's contract. One
-//   block per output row of a plane (the grid runs over planes x rows), one
-//   thread per output pixel in turn, so neighbouring threads write
-//   neighbouring pixels. In the column form neighbouring threads read
-//   neighbouring columns of the two source rows, so the loads stay
-//   coalesced where the field is smooth.
+//   zero fill outside [-1, L] (L = W or H), the TPU kernel's contract.
+//   The design is K2's (below): a thread owns PIX output pixels of one
+//   image, BLOCK apart, so that every load and store of a warp is one
+//   contiguous run. It reads each pixel's q once and computes the clamped
+//   floor, the fraction and the two taps' validity once, then walks the
+//   image's planes: two taps and one store a plane. The row form's taps
+//   lie in the output row, next to j; the column form's lie in two rows at
+//   column j, so neighbouring lanes read neighbouring columns and the loads
+//   stay coalesced where the field is smooth. The grid is (pixel blocks,
+//   images, groups of CH_GROUP planes).
 //   Bound: memory. At the canonical shape (200 images x 3 channels of
 //   224x224) a pass reads 120.4 MB of planes and 40.1 MB of coordinates and
-//   writes 120.4 MB: 0.084 ms at 3.35 TB/s. The planes are read about once
-//   (the second tap of a row hits the same cache line), but the blocks of
-//   every plane read their image's coordinate row again: C times, 120.4 MB
-//   of coordinates where the bound counts 40.1 MB, and the floor and the
-//   weight are computed C times. That is why K1 is the next kernel in
-//   ROADMAP.md: tent_bilinear_kernel's design below, one thread walking
-//   its image's planes, removes both.
+//   writes 120.4 MB, each once: 0.084 ms at 3.35 TB/s. PERF.md, section 6,
+//   gives its time on the card beside the old design's and grid_sample's.
 //
 // tent_bilinear_kernel (K2): its note is above the kernel.
 
@@ -46,40 +45,57 @@
 
 namespace {
 
+constexpr int BLOCK = 256;
+constexpr int PIX = 2;       // output pixels a thread (K1 and K2)
+constexpr int CH_GROUP = 4;  // planes a thread walks, at most
+
 __device__ __forceinline__ int clamp_tap(float k0, int L) {
   // taps at -2/-1 or L+1/L+2 are both outside the plane, so clamping the
   // floor to [-2, L+1] keeps the result and keeps the int conversion defined
   return (int)fminf(fmaxf(k0, -2.0f), (float)L + 1.0f);
 }
 
-__global__ void __launch_bounds__(256)
+// tent_rows_kernel (K1): its note is at the top of the file.
+__global__ void __launch_bounds__(BLOCK)
 tent_rows_kernel(const float* __restrict__ planes, const float* __restrict__ q,
                  float* __restrict__ out, int C, int H, int W, int along_h) {
-  const long long row = blockIdx.x;  // n * H + i
-  const long long n = row / H;
-  const int i = (int)(row - n * H);
-  const long long b = n / C;
-  const float* plane = planes + n * H * W;
-  const float* q_row = q + (b * H + i) * W;
-  float* out_row = out + row * W;
+  const int b = blockIdx.y;
+  const int HW = H * W;
+  const int p0 = blockIdx.x * (BLOCK * PIX) + threadIdx.x;  // the first pixel, in the image
+  const float* q_b = q + (long long)b * HW;
   const int L = along_h ? H : W;
-
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const float qq = q_row[j];
+  const int step = along_h ? W : 1;  // from the first tap to the second
+  int off[PIX];         // the first tap's offset in a plane: read only where it is valid
+  unsigned valid[PIX];  // bit 0: the first tap, bit 1: the second; 0 past the end
+  float f[PIX], one_f[PIX];
+#pragma unroll
+  for (int k = 0; k < PIX; ++k) {
+    const int p = p0 + k * BLOCK;
+    const float qq = p < HW ? __ldg(q_b + p) : 0.0f;
     const float k0f = floorf(qq);
-    const float f = __fsub_rn(qq, k0f);
+    f[k] = __fsub_rn(qq, k0f);
+    one_f[k] = __fsub_rn(1.0f, f[k]);
     const int k0 = clamp_tap(k0f, L);
-    const int k1 = k0 + 1;
-    float v0 = 0.0f, v1 = 0.0f;
-    if (along_h) {
-      if (k0 >= 0 && k0 < L) v0 = plane[(long long)k0 * W + j];
-      if (k1 >= 0 && k1 < L) v1 = plane[(long long)k1 * W + j];
-    } else {
-      const float* src = plane + (long long)i * W;
-      if (k0 >= 0 && k0 < L) v0 = src[k0];
-      if (k1 >= 0 && k1 < L) v1 = src[k1];
+    const int i = p / W;
+    const int j = p - i * W;
+    off[k] = along_h ? k0 * W + j : i * W + k0;
+    valid[k] = p < HW ? (unsigned)(k0 >= 0 && k0 < L) | (unsigned)(k0 + 1 >= 0 && k0 + 1 < L) << 1
+                      : 0u;
+  }
+
+  const int c_end = min(C, (int)(blockIdx.z + 1) * CH_GROUP);
+  for (int c = blockIdx.z * CH_GROUP; c < c_end; ++c) {
+    const long long n = (long long)b * C + c;
+    const float* plane = planes + n * HW;
+    float* o = out + n * HW;
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      const float* t = plane + off[k];
+      const float v0 = (valid[k] & 1u) ? __ldg(t) : 0.0f;
+      const float v1 = (valid[k] & 2u) ? __ldg(t + step) : 0.0f;
+      const int p = p0 + k * BLOCK;
+      if (p < HW) o[p] = __fadd_rn(__fmul_rn(v0, one_f[k]), __fmul_rn(v1, f[k]));
     }
-    out_row[j] = __fadd_rn(__fmul_rn(v0, __fsub_rn(1.0f, f)), __fmul_rn(v1, f));
   }
 }
 
@@ -106,9 +122,6 @@ tent_rows_kernel(const float* __restrict__ planes, const float* __restrict__ q,
 //   3.35 TB/s. PERF.md, section 6, gives its time on the card (NVIDIA H100
 //   80GB HBM3, 700 W) beside the old design's 0.22-0.27 ms and
 //   grid_sample's 0.136 ms.
-constexpr int BLOCK = 256;
-constexpr int PIX = 2;       // output pixels a thread
-constexpr int CH_GROUP = 4;  // planes a thread walks, at most
 
 __global__ void __launch_bounds__(BLOCK)
 tent_bilinear_kernel(const float* __restrict__ planes, const float* __restrict__ ys,
@@ -162,11 +175,6 @@ tent_bilinear_kernel(const float* __restrict__ planes, const float* __restrict__
   }
 }
 
-int threads_for(int width) {
-  const int t = ((width + 31) / 32) * 32;
-  return t < 256 ? t : 256;
-}
-
 }  // namespace
 
 extern "C" {
@@ -175,10 +183,14 @@ extern "C" {
 // lerp along W (row form); along_h = 1: lerp along H (column form).
 int tent_rows(const void* planes, const void* q, void* out, int N, int C, int H, int W,
               int along_h, void* stream) {
-  const long long blocks = (long long)N * H;
-  if (N <= 0 || C <= 0 || N % C != 0 || H <= 0 || W <= 0 || blocks > 0x7fffffffLL)
+  const long long HW = (long long)H * W;
+  if (N <= 0 || C <= 0 || N % C != 0 || H <= 0 || W <= 0 ||
+      (long long)(H + 3) * (W + 3) > 0x7fffffffLL ||  // a tap's offset fits an int
+      HW > 0x7fffffffLL - BLOCK * PIX || N / C > 65535 || (C + CH_GROUP - 1) / CH_GROUP > 65535)
     return (int)cudaErrorInvalidValue;
-  tent_rows_kernel<<<(unsigned)blocks, threads_for(W), 0, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((HW + BLOCK * PIX - 1) / (BLOCK * PIX)), N / C,
+                  (C + CH_GROUP - 1) / CH_GROUP);
+  tent_rows_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       (const float*)planes, (const float*)q, (float*)out, C, H, W, along_h);
   return (int)cudaGetLastError();
 }

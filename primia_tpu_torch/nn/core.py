@@ -19,7 +19,8 @@ by the same names, so one setting picks the same path in both packages:
   bfloat16, is ``ops/cuda_wgrad.py:conv3x3_s1p1``, whose weight gradient
   is K7 (``primia_tpu/nn/core.py:PlainEngine.conv2d``).
 - ``PRIMIA_PALLAS_BN=1``: train-mode batch norm of a 4-D bfloat16
-  activation is ``ops/cuda_bn.py:bn_train``, its sums K8
+  activation is ``ops/cuda_bn.py:bn_train``, its sums K8 and the
+  finalize and elementwise passes around them
   (``primia_tpu/nn/core.py:batch_norm``).
 
 The JAX package honours them only on a TPU. The port honours them on
@@ -132,8 +133,10 @@ class Norm(nn.Module):
     It is ``F.batch_norm``, which computes exactly that (the JAX package
     left BN to XLA); a bfloat16 input keeps float32 statistics and
     parameters. Under ``PRIMIA_PALLAS_BN=1`` a 4-D bfloat16 input takes
-    ``bn_train`` instead (statistics and the gamma/beta gradients from K8,
-    float32 parameters), with the same running-statistics update."""
+    ``bn_train`` instead (three kernel launches a direction on the card:
+    K8's sums, a finalize that also updates the running statistics, and
+    one elementwise pass; float32 parameters), with the same
+    running-statistics update."""
 
     momentum = 0.1
 
@@ -163,14 +166,10 @@ class Norm(nn.Module):
                           self.running_var, self.eps)
 
     def _bn_train(self, x: torch.Tensor) -> torch.Tensor:
-        """``bn_train`` and the running-statistics update of
-        ``primia_tpu/nn/core.py:batch_norm`` (train=True): the unbiased
-        variance, ``(1 - m) * old + m * batch``."""
+        """``bn_train`` with the running statistics, which its finalize
+        updates as ``primia_tpu/nn/core.py:batch_norm`` (train=True) does:
+        the unbiased variance, ``(1 - m) * old + m * batch``."""
         with torch.autocast(x.device.type, enabled=False):
-            y, mean, var = bn_train(x, self.weight, self.bias, self.eps)
-        n = x.numel() // x.shape[1]
-        m = self.momentum
-        with torch.no_grad():
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m * n / max(n - 1, 1))
+            y, _, _ = bn_train(x, self.weight, self.bias, self.eps, self.running_mean,
+                               self.running_var, self.momentum)
         return y

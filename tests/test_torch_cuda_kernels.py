@@ -116,9 +116,20 @@ def test_tent_rows_matches_plain(cuda_device, shape, axis):
     assert cuda_tent.launches["tent_rows"] == before + 1
 
 
-# K2 also at one plane (C = 1), C above a thread's 4 planes, and Ho*Wo no
-# multiple of a block's 512 pixels, with positions far outside
+# K1 and K2 also at one plane (C = 1), C above a thread's 4 planes, and
+# H*W no multiple of a block's 512 pixels, with positions far outside
 TENT_BILINEAR_SHAPES = TENT_SHAPES + [(2, 1, 37, 45), (3, 4, 60, 73), (2, 9, 33, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TENT_BILINEAR_SHAPES[len(TENT_SHAPES):])
+@pytest.mark.parametrize("axis", [1, 2])
+def test_tent_rows_matches_plain_at_ragged_shapes(cuda_device, shape, axis):
+    """Bit for bit, with positions up to 4 planes past either edge."""
+    planes, ys, xs = _tent_operands(shape, cuda_device, far=True)
+    q = ys if axis == 1 else xs
+    torch.testing.assert_close(cuda_tent.tent_rows(planes, q, axis=axis),
+                               cuda_tent.tent_rows_plain(planes, q, axis=axis), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -341,13 +352,116 @@ def test_bn_sums_match_plain(cuda_device, shape):
     x, g = _bf16_cl(shape, cuda_device, 23, 1.0, 0.5), _bf16_cl(shape, cuda_device, 24, 0.1, 0.05)
     before = dict(cuda_bn.launches)
     got = cuda_bn.channel_sums(x) + cuda_bn.grad_channel_sums(g, x)
-    assert cuda_bn.launches == {k: v + 1 for k, v in before.items()}
+    sums = ("bn_sums", "bn_grad_sums")
+    assert cuda_bn.launches == {k: v + (k in sums) for k, v in before.items()}
     want = cuda_bn.channel_sums_plain(x) + cuda_bn.grad_channel_sums_plain(g, x)
     scale = cuda_bn.channel_sums_plain(x.abs()) + cuda_bn.grad_channel_sums_plain(g.abs(),
                                                                                 x.abs())
     for a, b, m in zip(got, want, scale):
         assert a.shape == (shape[1],) and a.dtype == torch.float32
         assert bool(((a - b).abs() <= 1e-5 * m + 1e-6).all())
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at each |t| (8 significant bits)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _bn_operands(shape, device):
+    C = shape[1]
+    g = torch.Generator(device="cpu").manual_seed(sum(shape))
+    vec = lambda lo, hi: (torch.rand(C, generator=g) * (hi - lo) + lo).to(device)  # noqa: E731
+    return (_bf16_cl(shape, device, 29, 1.0, 0.5), _bf16_cl(shape, device, 30, 0.1, 0.05),
+            vec(0.5, 1.5), vec(-0.2, 0.2), vec(-0.1, 0.1), vec(0.5, 1.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bn_launches_match_plain(cuda_device, shape):
+    """Each of the BN's six launches against its plain version on the same
+    inputs: the finalizes' sums within 1e-6 of the sums of the partials'
+    absolute values (another order), every statistic and coefficient
+    within 1e-6 of its largest |value| (the same roundings; rsqrt may
+    differ in its last bit), the running statistics likewise, and y and
+    dx within one bfloat16 ulp. Each launch counts once."""
+    from primia_tpu_torch.ops import cuda_bn
+
+    x, gy, gamma, beta, rm, rv = _bn_operands(shape, cuda_device)
+    n = x.numel() // shape[1]
+    before = dict(cuda_bn.launches)
+    rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    part = cuda_bn.channel_partials(x)
+    stats = cuda_bn.bn_finalize(part, gamma, beta, n, 1e-5, rm_k, rv_k, 0.1)
+    _, _, mean, var, r, inv, off = stats.unbind(0)
+    y = cuda_bn.bn_apply(x, inv, off)
+    gpart = cuda_bn.grad_channel_partials(gy, x)
+    coef = cuda_bn.bn_grad_finalize(gpart, gamma, mean, r, n)
+    dx = cuda_bn.bn_dx(gy, x, *coef[3:])
+    assert cuda_bn.launches == {k: v + 1 for k, v in before.items()}
+
+    for got, p in ((stats, part), (coef, gpart)):
+        torch.testing.assert_close(got[:2], p.sum(0), rtol=0,
+                                   atol=1e-6 * float(p.abs().sum(0).max()))
+    want = cuda_bn.bn_finalize_plain(stats[:2], gamma, beta, n, 1e-5, rm_p, rv_p, 0.1)
+    want_g = cuda_bn.bn_grad_finalize_plain(coef[:2], gamma, mean, r, n)
+    for got, ref in ((stats[2:], want[2:]), (coef[2:], want_g[2:]), (rm_k, rm_p), (rv_k, rv_p)):
+        for a, b in zip(got.reshape(-1, shape[1]), ref.reshape(-1, shape[1])):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+    for got, ref in ((y, cuda_bn.bn_apply_plain(x, inv, off)),
+                     (dx, cuda_bn.bn_dx_plain(gy, x, *coef[3:]))):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
+        assert bool(((got.float() - ref.float()).abs() <= _bf16_ulp(ref)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 64, 112, 112), (200, 512, 7, 7)], ids=["stem", "layer4"])
+def test_bn_launches_are_deterministic(cuda_device, shape):
+    """Two calls on the same operands give the same bits: the finalizes
+    sum the partials in a fixed order."""
+    from primia_tpu_torch.ops import cuda_bn
+
+    x, gy, gamma, beta, _, _ = _bn_operands(shape, cuda_device)
+    n = x.numel() // shape[1]
+
+    def run():
+        stats = cuda_bn.bn_finalize(cuda_bn.channel_partials(x), gamma, beta, n, 1e-5)
+        coef = cuda_bn.bn_grad_finalize(cuda_bn.grad_channel_partials(gy, x), gamma, stats[2],
+                                        stats[4], n)
+        return stats, coef, cuda_bn.bn_apply(x, stats[5], stats[6]), cuda_bn.bn_dx(gy, x,
+                                                                               *coef[3:])
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bn_train_runs_three_kernels_a_direction(cuda_device):
+    """``bn_train`` forward and backward, with the running statistics:
+    the profiler sees exactly the three BN kernels in each direction and
+    no other device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from primia_tpu_torch.ops import cuda_bn
+
+    x, gy, gamma, beta, rm, rv = _bn_operands((8, 64, 10, 10), cuda_device)
+    x.requires_grad_(True)
+    gamma.requires_grad_(True)
+    beta.requires_grad_(True)
+    cuda_bn.bn_train(x, gamma, beta, 1e-5, rm, rv, 0.1)  # builds the library
+    for direction in ("forward", "backward"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if direction == "forward":
+                y, _, _ = cuda_bn.bn_train(x, gamma, beta, 1e-5, rm, rv, 0.1)
+            else:
+                torch.autograd.grad(y, (x, gamma, beta), gy)
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in prof.key_averages() if e.device_time_total > 0)
+        kinds = (("bn_sums_kernel", "bn_finalize_kernel", "bn_apply_kernel")
+                 if direction == "forward" else
+                 ("bn_grad_sums_kernel", "bn_grad_finalize_kernel", "bn_dx_kernel"))
+        assert len(names) == 3 and all(any(k in n for n in names) for k in kinds), names
 
 
 @pytest.mark.cuda
@@ -417,6 +531,14 @@ def test_opt_in_kernels_reject_bad_operands(cuda_device):
         cuda_bn.channel_sums(x)
     with pytest.raises(ValueError):
         cuda_bn.channel_sums(_bf16_cl((2, 16, 5, 5), cuda_device, 28).float())
+    x16 = _bf16_cl((2, 16, 5, 5), cuda_device, 28)
+    v = torch.ones(16, device=cuda_device)
+    with pytest.raises(ValueError):  # a vector off the 16-byte grid
+        cuda_bn.bn_apply(x16, torch.ones(17, device=cuda_device)[1:], v)
+    with pytest.raises(ValueError):  # one running statistic of two
+        cuda_bn.bn_finalize(cuda_bn.channel_partials(x16), v, v, 50, 1e-5, v.clone(), None)
+    with pytest.raises(RuntimeError):
+        cuda_bn.bn_dx(x16, x16, v.cpu(), v, v)
     with pytest.raises(ValueError):
         cuda_kernels.add_gaussian_noise(torch.zeros(70000, 2, device=cuda_device), 1, 0.1)
     with pytest.raises(ValueError):
