@@ -8,17 +8,22 @@ Phases, each reported on its own line; any failure exits nonzero:
 
 1. build          compile every ``primia_tpu_torch/csrc/*.cu`` with nvcc
                   (all at once) and report the seconds.
-2. clahe_lut      the LUT kernel against its plain PyTorch version on the
-                  card, at the serving path's shape (16, 224, 224), at
-                  (64, 224, 224), at the train path's (200, 224, 224) and at
-                  a ragged (3, 60, 60): LUTs equal.
-3. clahe_apply    the apply kernel likewise: at most 1 uint8 level apart,
-                  on at most 1e-4 of the pixels. For each kernel and shape:
-                  kernel_ms (device time per launch, torch.profiler),
-                  call_ms (the wrapper's time per call in a loop, CUDA
-                  events), plain_ms, and bound_ms (each input byte read and
-                  each output byte written once at 3.35 TB/s, or the f32
-                  operations at 67 TFLOP/s, whichever is larger).
+2-3. clahe       K3, CLAHE as one kernel (a thread-block cluster a plane),
+                  against its plain composite (LUTs, apply, / 255) on the
+                  card, bit for bit, at the serving path's shape (16, 224,
+                  224), at (64, 224, 224), at the train path's (200, 224,
+                  224), at a ragged (3, 60, 60) and on low-entropy planes (all
+                  zero, 90% one value, a smooth ramp, and 200 planes of
+                  those); its LUTs (``luts_out``) equal the plain LUTs; two
+                  calls give the same bits. For each case: kernel_ms
+                  (device time per launch, torch.profiler), call_ms (the
+                  wrapper's time per call in a loop, CUDA events), plain_ms,
+                  and bound_ms (each pixel read once and its float32 result
+                  written once, 5 bytes a pixel at 3.35 TB/s, or the f32
+                  operations at 67 TFLOP/s, whichever is larger); then the
+                  cluster shape, shared memory a CTA and the clusters the
+                  card holds at once, and the kernel's registers, shared
+                  memory and spills (cuobjdump -res-usage).
 4. tent_rows      K1 against its plain version, bit for bit, at the
                   canonical train shape (200 images x 3 channels of 224x224)
                   for each of the train step's four passes (the affine warp's
@@ -38,14 +43,14 @@ Phases, each reported on its own line; any failure exits nonzero:
                   3 channels, 224 px, CLAHE on) with seeded random weights,
                   saved as a checkpoint; 64 synthetic 224x224 DICOMs; the
                   inference CLI on cuda at batch 16, with the launch counters
-                  set to 0 just before and read just after (each CLAHE kernel
+                  set to 0 just before and read just after (the CLAHE kernel
                   once per batch); the card's logits for 4 images against the
                   same predict step on the CPU; images per second; a profile.
 7. train          slice 2's main path: the canonical INI with epochs = 1 on a
                   synthetic 3-class set of 600 train and 60 test DICOMs;
                   ``python -m primia_tpu_torch.cli.train`` in-process on cuda,
                   counters set to 0 just before and read just after (K1 four
-                  times per train step, K2 never, each CLAHE kernel once);
+                  times per train step, K2 never, the CLAHE kernel once);
                   then 24 timed train steps at batch 200 (p50/p75, img/s,
                   device ms by category, idle share, a profile); 2 steps under
                   PRIMIA_WARP_TWOPASS=0 (K2 once per step); and one float32
@@ -108,7 +113,7 @@ Phases, each reported on its own line; any failure exits nonzero:
                   --encrypted_inference (fss) on cuda, in-process, on 8 of the
                   serve phase's DICOMs with its checkpoint at --batch_size 4,
                   counters set to 0 just before and read just after (K4 21
-                  times per forward, each CLAHE kernel once per batch); the
+                  times per forward, the CLAHE kernel once per batch); the
                   encrypted logits against the card's plain predict step
                   (max |d| <= max(0.02, 1e-3 * max |logit|), argmax equal
                   wherever the plain top-two margin exceeds that); once more
@@ -177,10 +182,9 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 KERNELS = {
-    "clahe_lut": {"replaces": "primia_tpu/ops/pallas_clahe.py:83", "path": "train",
-                  "kernel": ("clahe_lut_kernel",), "source": "primia_tpu_torch/csrc/clahe.cu"},
-    "clahe_apply": {"replaces": "primia_tpu/ops/pallas_clahe.py:148", "path": "train",
-                    "kernel": ("clahe_apply_kernel",), "source": "primia_tpu_torch/csrc/clahe.cu"},
+    # K3: both TPU kernels (the LUTs, their apply) and the / 255 after them
+    "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
+              "kernel": ("clahe_kernel",), "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
                   "kernel": ("tent_rows_kernel",), "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
@@ -367,55 +371,67 @@ def phase_build():
     say("build", seconds=f"{secs:.3f}", libraries=",".join(sorted(libs)))
 
 
+def low_entropy_planes(torch, n, H, W, g):
+    """Planes whose histograms pile into few bins, as the flat regions of a
+    chest X-ray do: all zero, 90% one value, a smooth ramp, in turn."""
+    dev = g.device
+    rand = torch.randint(0, 256, (H, W), dtype=torch.uint8, device=dev, generator=g)
+    mostly = torch.where(torch.rand((H, W), device=dev, generator=g) < 0.9,
+                         torch.full_like(rand, 200), rand)
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
+                            indexing="ij")
+    ramp = ((ys + xs) * 255 // max(H + W - 2, 1)).to(torch.uint8)
+    kinds = [torch.zeros_like(rand), mostly, ramp]
+    return torch.stack([kinds[i % 3] for i in range(n)])
+
+
 def phase_kernels(torch, seed):
-    """Phases 2 and 3: each kernel against its plain version on the card.
-    Returns the per-kernel records (times at the main path's shape)."""
+    """Phases 2-3: K3 against its plain composite on the card, bit for bit.
+    Returns its record, with the times at the train step's 200 planes."""
     from primia_tpu_torch.ops import cuda_clahe as cc
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    rec = {name: {"max_abs_err": 0.0} for name in KERNELS}
-    for shape in [(BATCH, RES, RES), (64, RES, RES), (TRAIN_BATCH, RES, RES), (3, 60, 60)]:
-        planes = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=g)
-        N, H, W = shape
+    rec = {"max_abs_err": 0.0}
+    cases = [(f"{n}x{h}x{w}", torch.randint(0, 256, (n, h, w), dtype=torch.uint8, device=dev,
+                                            generator=g))
+             for n, h, w in [(BATCH, RES, RES), (64, RES, RES), (TRAIN_BATCH, RES, RES),
+                             (3, 60, 60)]]
+    low = low_entropy_planes(torch, TRAIN_BATCH, RES, RES, g)
+    cases += [("zero", low[0:1]), ("mostly_one_value", low[1:2]), ("ramp", low[2:3]),
+              (f"low_entropy_{TRAIN_BATCH}x{RES}x{RES}", low)]
+    for name, planes in cases:
+        N, H, W = planes.shape
         T = 8
-        luts = cc.clahe_luts(planes)
+        luts = torch.full((N, T * T, 256), -1.0, device=dev)
+        out = cc.clahe_planes(planes, luts_out=luts)
         torch.cuda.synchronize()
-        luts_plain = cc.clahe_luts_plain(planes)
-        lut_err = float((luts - luts_plain).abs().max())
-        check(torch.equal(luts, luts_plain), f"clahe_lut differs from plain at {shape}: {lut_err}")
-        rec["clahe_lut"]["max_abs_err"] = max(rec["clahe_lut"]["max_abs_err"], lut_err)
-
-        out = cc.clahe_apply(planes, luts_plain)
-        torch.cuda.synchronize()
-        out_plain = cc.clahe_apply_plain(planes, luts_plain)
-        d = (out - out_plain).abs()
-        err, frac = float(d.max()), float((d > 1e-3).float().mean())
-        check(err <= 1.0 and frac <= 1e-4,
-              f"clahe_apply differs from plain at {shape}: max {err}, share {frac}")
-        rec["clahe_apply"]["max_abs_err"] = max(rec["clahe_apply"]["max_abs_err"], err)
+        want = cc.clahe_planes_plain(planes)
+        err = float((out - want).abs().max())
+        check(torch.equal(out, want), f"clahe differs from its plain composite at {name}: "
+              f"max |d| {err}")
+        check(torch.equal(luts, cc.clahe_luts_plain(planes)),
+              f"clahe's LUTs differ from the plain LUTs at {name}")
+        check(torch.equal(cc.clahe_planes(planes), out),
+              f"clahe gives other bits on a second call at {name}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
         px = N * H * W
-        lut_bytes = N * T * T * 256 * 4
-        timings = {
-            "clahe_lut": (lambda: cc.clahe_luts(planes), lambda: cc.clahe_luts_plain(planes),
-                          bound(px + lut_bytes, px + N * T * T * 256 * 8)),
-            "clahe_apply": (lambda: cc.clahe_apply(planes, luts),
-                            lambda: cc.clahe_apply_plain(planes, luts),
-                            bound(px + lut_bytes + 4 * px, 24 * px)),
-        }
-        for name, (kern, plain, (bound_ms, bound_by)) in timings.items():
-            call_ms = cuda_ms(torch, kern, 100)
-            plain_ms = cuda_ms(torch, plain, 20)
-            dev_ms = function_device_ms(profile(torch, kern, 20), KERNELS[name]["kernel"], 20)
-            say(name, shape="x".join(map(str, shape)),
-                kernel_ms="not measured" if dev_ms is None else f"{dev_ms:.6f}",
-                call_ms=f"{call_ms:.6f}",
-                plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
-                max_abs_err=rec[name]["max_abs_err"])
-            if shape == (BATCH, RES, RES):
-                rec[name].update(ms=call_ms if dev_ms is None else dev_ms, call_ms=call_ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        # 5 bytes a pixel; about 12 f32 operations a pixel (the mix and the
+        # quotient), 8 a LUT entry (clip, spread, scan, scale)
+        r = timed_record(torch, "clahe", lambda: cc.clahe_planes(planes),
+                         lambda: cc.clahe_planes_plain(planes), None,
+                         bound(5 * px, 12 * px + 8 * N * T * T * 256), iters=100,
+                         plain_iters=20)
+        _say_times("clahe", r, case=name, max_abs_err=err, deterministic="yes")
+        if name == f"{TRAIN_BATCH}x{RES}x{RES}":
+            rec.update(r)
+    for H, W in ((RES, RES), (60, 60)):
+        plan = cc.cluster_plan(H, W)
+        check(plan["max_active_clusters"] > 0, f"clahe: no cluster fits at {H}x{W}: {plan}")
+        say("clahe", plane=f"{H}x{W}", plan=json.dumps(plan))
+    res = resource_usage("clahe")
+    say("clahe", resource_usage="not available" if res is None else json.dumps(res))
     return rec
 
 
@@ -1066,8 +1082,7 @@ def phase_encrypt(torch, seed, work, profile_out):
         extra = [] if tile is None else ["--mpc_batch_tile", str(tile)]
         preds, launches, cli_s = run_cli(extra)
         forwards = n_batches * (1 if tile is None else -(-ENCRYPT_BATCH // tile))
-        expect = idle_launches(dcf_sign=SIGNS_PER_FORWARD * forwards, clahe_lut=forwards,
-                               clahe_apply=forwards)
+        expect = idle_launches(dcf_sign=SIGNS_PER_FORWARD * forwards, clahe=forwards)
         check(launches == expect, f"encrypted CLI (tile {tile}) launches {launches}, "
               f"expected {expect}")
         enc = build_encrypted_predict(model, args, mean, std, "cuda",
@@ -1187,7 +1202,7 @@ def phase_serve(torch, seed, work, profile_out):
     for name in cc.launches:
         check(launches[name] == n_batches,
               f"{name} launched {launches[name]} times for {n_batches} batches")
-    check(launches == idle_launches(clahe_lut=n_batches, clahe_apply=n_batches),
+    check(launches == idle_launches(clahe=n_batches),
           f"the serving path launched a kernel other than CLAHE's: {launches}")
     say("serve", cli_seconds=f"{cli_s:.4f}", cli_img_per_s=f"{N_IMAGES / cli_s:.2f}",
         launches=json.dumps(launches), predictions=lines[1])
@@ -1342,7 +1357,7 @@ def phase_train(torch, seed, work, profile_out):
     finally:
         os.chdir(cwd)
     (work / "train_cli.log").write_text(out.getvalue())
-    want = idle_launches(tent_rows=4 * steps, clahe_lut=steps, clahe_apply=steps)
+    want = idle_launches(tent_rows=4 * steps, clahe=steps)
     check(launches == want, f"train CLI launches {launches}, expected {want}")
     finals = sorted((work / "model_weights").glob("final_*.pt"))
     check(len(finals) == 1, f"train CLI wrote {len(finals)} final checkpoints")
@@ -1504,7 +1519,7 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
     finally:
         os.chdir(cwd)
     (work / "train_optin_cli.log").write_text(out.getvalue())
-    want = idle_launches(tent_rows=4 * steps, clahe_lut=steps, clahe_apply=steps,
+    want = idle_launches(tent_rows=4 * steps, clahe=steps,
                          conv3x3_wgrad=K7_PER_STEP * steps,
                          **{k: K8_PER_STEP * steps for k in BN_LAUNCHES})
     check(launches == want, f"switched train CLI launches {launches}, expected {want}")
@@ -1647,7 +1662,7 @@ def main(argv=None) -> int:
             capability=torch.cuda.get_device_capability(0), torch=torch.__version__,
             cuda=torch.version.cuda, sm_clock_max_mhz=sm_max_mhz, sm_clock_mhz=sm_mhz)
         phase_build()
-        rec = phase_kernels(torch, opts.seed)
+        rec = {"clahe": phase_kernels(torch, opts.seed)}
         rec.update(phase_tent(torch, opts.seed))
         rec["dcf_sign"] = phase_dcf(torch, opts.seed, sm_max_mhz)
         rec["conv3x3_wgrad"] = phase_wgrad(torch, opts.seed)

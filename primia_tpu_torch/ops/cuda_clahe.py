@@ -1,14 +1,17 @@
-"""CLAHE's two kernels: per-tile LUTs and the bilinear LUT apply.
+"""CLAHE as one kernel: per-tile LUTs, their bilinear apply and the
+division by 255, from uint8 planes to [0, 1] floats.
 
-Port of ``primia_tpu/ops/pallas_clahe.py``. The CUDA kernels live in
-``primia_tpu_torch/csrc/clahe.cu`` (their header note says what each
-replaces and what bounds it); this module holds their wrappers and, in
-the same file, their plain PyTorch versions, which follow the JAX
-package's gather path (``primia_tpu/ops/image.py:_clahe_channels``).
+Port of ``primia_tpu/ops/pallas_clahe.py`` (its two ``pallas_call``s and
+the ``/ 255.0`` after them). The CUDA kernel lives in
+``primia_tpu_torch/csrc/clahe.cu`` (its header note says what it replaces,
+what bounds it and how it is laid out); this module holds its wrapper
+and, in the same file, its plain PyTorch version, which follows the JAX
+package's gather path (``primia_tpu/ops/image.py:_clahe_channels``) in
+two stages, the LUTs and their apply.
 
-A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``launches`` counts kernel launches,
-one per wrapper call that reached the kernel.
+The wrapper given a CPU tensor runs the plain version; given a CUDA
+tensor it launches the kernel or raises. ``launches`` counts kernel
+launches, one per wrapper call that reached the kernel.
 
 Tile geometry: ``T = tiles`` tiles a side, each ``th = ceil(H/T)`` by
 ``tw = ceil(W/T)`` pixels; the last tile row and column are filled with
@@ -19,13 +22,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from primia_tpu_torch.ops.numerics import div
 
-launches = {"clahe_lut": 0, "clahe_apply": 0}
+launches = {"clahe": 0}
+
+MAX_TILES = 8  # the kernel runs a cluster of T CTAs a plane; 8 is the portable limit
+MAX_SMEM_BYTES = 232_448  # the dynamic shared memory an H100 CTA can use (227 KB)
 
 
 def tile_geometry(H: int, W: int, tiles: int) -> Tuple[int, int]:
@@ -60,28 +66,23 @@ def _lib():
 
     lib = load_library("clahe")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.clahe_lut.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
-    lib.clahe_lut.restype = ci
-    lib.clahe_apply.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-    lib.clahe_apply.restype = ci
+    lib.clahe.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+    lib.clahe.restype = ci
+    lib.clahe_smem_bytes.argtypes = [ci, ci, ci, ci]
+    lib.clahe_smem_bytes.restype = ci
+    lib.clahe_max_active_clusters.argtypes = [ci, ci, ci, ci]
+    lib.clahe_max_active_clusters.restype = ci
     lib.clahe_error_string.argtypes = [ci]
     lib.clahe_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} launch failed: CUDA error {err} "
-            f"({lib.clahe_error_string(err).decode()})")
-
-
 def _cuda_device(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
-        raise RuntimeError(f"CLAHE kernels run on CPU or CUDA tensors, not {t.device}")
+        raise RuntimeError(f"CLAHE runs on CPU or CUDA tensors, not {t.device}")
 
 
-# ------------------------------------------------------------ LUT stage
+# ---------------------------------------------------- the plain version
 
 def clahe_luts_plain(planes: torch.Tensor, clip_limit: float = 1.0,
                      tiles: int = 8) -> torch.Tensor:
@@ -104,29 +105,6 @@ def clahe_luts_plain(planes: torch.Tensor, clip_limit: float = 1.0,
     cdf = torch.cumsum(hist.clamp_(max=limit) + div(excess, 256.0), dim=-1)
     return torch.round(div(cdf, P) * 255.0).clamp_(0.0, 255.0)
 
-
-def clahe_luts(planes: torch.Tensor, clip_limit: float = 1.0,
-               tiles: int = 8) -> torch.Tensor:
-    """LUT stage: (N, H, W) uint8 planes -> (N, T*T, 256) float32."""
-    _check_planes(planes)
-    if planes.device.type == "cpu":
-        return clahe_luts_plain(planes, clip_limit, tiles)
-    _cuda_device(planes)
-    planes = planes.contiguous()
-    N, H, W = planes.shape
-    th, tw = tile_geometry(H, W, tiles)
-    luts = torch.empty((N, tiles * tiles, 256), dtype=torch.float32, device=planes.device)
-    lib = _lib()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.clahe_lut(planes.data_ptr(), luts.data_ptr(), N, H, W, tiles, th, tw,
-                            clip_limit_count(clip_limit, th, tw), stream)
-    _raise_on(lib, err, "clahe_lut")
-    launches["clahe_lut"] += 1
-    return luts
-
-
-# ---------------------------------------------------------- apply stage
 
 def clahe_apply_plain(planes: torch.Tensor, luts: torch.Tensor,
                       tiles: int = 8) -> torch.Tensor:
@@ -162,25 +140,80 @@ def clahe_apply_plain(planes: torch.Tensor, luts: torch.Tensor,
     return top * (1 - wy) + bot * wy
 
 
-def clahe_apply(planes: torch.Tensor, luts: torch.Tensor, tiles: int = 8) -> torch.Tensor:
-    """Apply stage: (N, H, W) uint8 + LUTs -> (N, H, W) float32 in [0, 255]."""
-    _check_planes(planes)
-    if planes.device.type == "cpu":
-        return clahe_apply_plain(planes, luts, tiles)
-    _cuda_device(planes)
-    N, H, W = planes.shape
-    _check_luts(luts, N, tiles, planes.device)
-    if N > 65535:
-        raise ValueError(f"clahe_apply takes at most 65535 planes a launch, got {N}")
-    planes = planes.contiguous()
-    luts = luts.contiguous()
+def clahe_planes_plain(planes: torch.Tensor, clip_limit: float = 1.0,
+                       tiles: int = 8) -> torch.Tensor:
+    """(N, H, W) uint8 -> (N, H, W) float32 in [0, 1]: the LUTs, their
+    apply, then the IEEE quotient by 255."""
+    luts = clahe_luts_plain(planes, clip_limit, tiles)
+    return div(clahe_apply_plain(planes, luts, tiles), 255.0)
+
+
+# ------------------------------------------------------------ the kernel
+
+def cluster_plan(H: int, W: int, tiles: int = 8) -> dict:
+    """The kernel's launch shape for (H, W) planes: CTAs a cluster (one
+    a tile row), threads a CTA, dynamic shared memory a CTA and how many
+    clusters the card holds at once. Builds the library."""
     th, tw = tile_geometry(H, W, tiles)
-    out = torch.empty((N, H, W), dtype=torch.float32, device=planes.device)
     lib = _lib()
+    return {"cluster": [tiles, 1, 1], "threads": 256,
+            "smem_bytes": lib.clahe_smem_bytes(W, tiles, th, tw),
+            "max_active_clusters": lib.clahe_max_active_clusters(W, tiles, th, tw)}
+
+
+def clahe_planes(planes: torch.Tensor, clip_limit: float = 1.0, tiles: int = 8, *,
+                 luts_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CLAHE of (N, H, W) uint8 planes -> (N, H, W) float32 in [0, 1].
+
+    ``luts_out``, an (N, T*T, 256) float32 tensor on the planes' device,
+    receives the tile LUTs as well (the checks hold them to
+    :func:`clahe_luts_plain`)."""
+    _check_planes(planes)
+    N, H, W = planes.shape
+    if luts_out is not None:
+        _check_luts(luts_out, N, tiles, planes.device)
+    if planes.device.type == "cpu":
+        luts = clahe_luts_plain(planes, clip_limit, tiles)
+        if luts_out is not None:
+            luts_out.copy_(luts)
+        return div(clahe_apply_plain(planes, luts, tiles), 255.0)
+    _cuda_device(planes)
+    if not 1 <= tiles <= MAX_TILES:
+        raise ValueError(f"the CLAHE kernel runs one CTA a tile row in a thread-block "
+                         f"cluster, at most {MAX_TILES} (the portable cluster size): "
+                         f"tiles = {tiles}")
+    th, tw = tile_geometry(H, W, tiles)
+    lib = _lib()
+    smem = lib.clahe_smem_bytes(W, tiles, th, tw)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"a {H}x{W} plane at {tiles} tiles needs {smem} bytes of shared "
+                         f"memory a CTA (its band of {th} rows, histograms and LUTs), over "
+                         f"the {MAX_SMEM_BYTES} a CTA can use")
+    if luts_out is not None and not luts_out.is_contiguous():
+        raise ValueError("luts_out must be contiguous")
+    planes = planes.contiguous()
+    out = torch.empty((N, H, W), dtype=torch.float32, device=planes.device)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.clahe_apply(planes.data_ptr(), luts.data_ptr(), out.data_ptr(),
-                              N, H, W, tiles, th, tw, stream)
-    _raise_on(lib, err, "clahe_apply")
-    launches["clahe_apply"] += 1
+        err = lib.clahe(planes.data_ptr(), out.data_ptr(),
+                        None if luts_out is None else luts_out.data_ptr(), N, H, W, tiles,
+                        th, tw, clip_limit_count(clip_limit, th, tw), stream)
+    if err != 0:
+        raise RuntimeError(f"clahe launch failed: CUDA error {err} "
+                           f"({lib.clahe_error_string(err).decode()})")
+    launches["clahe"] += 1
     return out
+
+
+def clahe_luts(planes: torch.Tensor, clip_limit: float = 1.0,
+               tiles: int = 8) -> torch.Tensor:
+    """The LUT stage alone: (N, H, W) uint8 planes -> (N, T*T, 256)
+    float32. On the card it is one launch of the whole kernel with its
+    LUTs written out."""
+    _check_planes(planes)
+    if planes.device.type == "cpu":
+        return clahe_luts_plain(planes, clip_limit, tiles)
+    luts = torch.empty((planes.shape[0], tiles * tiles, 256), dtype=torch.float32,
+                       device=planes.device)
+    clahe_planes(planes, clip_limit, tiles, luts_out=luts)
+    return luts

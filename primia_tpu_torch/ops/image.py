@@ -5,7 +5,8 @@ Port of ``primia_tpu/ops/image.py``. Images are float32 in [0, 1], NHWC
 or, with ``channels_first``, NCHW; warps use inverse mapping with zero
 fill. The kernels sit behind two modules: the warps' resamplers in
 ``ops/cuda_tent.py`` (K1, the 1-D lerp of the two-pass warps; K2, the
-bilinear gather) and CLAHE's LUTs and apply in ``ops/cuda_clahe.py``.
+bilinear gather) and CLAHE (one kernel: LUTs, apply, / 255) in
+``ops/cuda_clahe.py``.
 CUDA tensors go to the kernels, CPU tensors to their plain versions, so
 both devices compute the TPU's default semantics:
 
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from primia_tpu_torch.ops.cuda_clahe import clahe_apply, clahe_luts
+from primia_tpu_torch.ops.cuda_clahe import clahe_planes
 from primia_tpu_torch.ops.cuda_tent import tent_bilinear, tent_rows
 from primia_tpu_torch.ops.numerics import div
 
@@ -361,8 +362,9 @@ def clahe(imgs: torch.Tensor, clip_limit: float = 1.0, tiles: int = 8,
 
 def _clahe_channels(imgs: torch.Tensor, clip_limit: float = 1.0, tiles: int = 8,
                     channels_first: bool = False) -> torch.Tensor:
-    """Per-channel CLAHE on [0, 1] floats: quantize to uint8 planes, per
-    tile LUTs (kernel 1), bilinear LUT apply (kernel 2), back to [0, 1].
+    """Per-channel CLAHE on [0, 1] floats: quantize to uint8 planes, then
+    one kernel makes the tile LUTs, applies them bilinearly and divides
+    by 255 (``ops/cuda_clahe.py:clahe_planes``).
 
     Reference: the gather path of ``primia_tpu/ops/image.py:
     _clahe_channels``, which the JAX predict step runs off the TPU.
@@ -371,8 +373,7 @@ def _clahe_channels(imgs: torch.Tensor, clip_limit: float = 1.0, tiles: int = 8,
     B, C, H, W = x.shape
     u8 = (x * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
     planes = u8.reshape(B * C, H, W).contiguous()
-    luts = clahe_luts(planes, clip_limit, tiles)
-    out = div(clahe_apply(planes, luts, tiles).reshape(B, C, H, W), 255.0)
+    out = clahe_planes(planes, clip_limit, tiles).reshape(B, C, H, W)
     if not channels_first:
         out = out.permute(0, 2, 3, 1)
     return out.to(imgs.dtype)
