@@ -101,10 +101,19 @@ Phases, each reported on its own line; any failure exits nonzero:
 11. noise         K5, the Gaussian-noise kernel, on its own path: the JAX
                   package calls it from no entry point, so its path is one
                   call at the canonical train batch (200 x 3 x 224 x 224 f32)
-                  with the counters set to 0 around it; its uniforms bit for
-                  bit against the plain version's, the output within 1e-5,
-                  the noise's moments, a ragged bf16 case; bound from the
-                  bytes, the Philox multiplies or the special functions.
+                  with the counters set to 0 around it; there, at an
+                  unaligned f32 case (7 x 3 x 37 x 45: rows of 4,995) and a
+                  ragged bf16 case, its uniforms bit for bit against the
+                  plain version's, the output within 1e-5 (f32) or one bf16
+                  ulp, the same bits over two calls; the noise's moments at
+                  30.1 M samples (mean, std, the correlation of each pair's
+                  cosine and sine elements, the share beyond 3 sigma, the
+                  excess kurtosis). Times as above, library_ms
+                  ``torch.normal(x, sigma)``, a copy of the same bytes as
+                  the achievable rate (not the bound); bound from the bytes,
+                  the Philox multiplies, the special-function unit or the
+                  issued instructions, whichever is largest; the SASS opcode
+                  counts (checked against the bound's counts) and registers.
 12. ring          the card's byte-limb ring conv (int8 torch._int_mm) against
                   the CPU's native int64 conv, bit for bit, at the stem conv
                   at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
@@ -562,13 +571,10 @@ def _cuobjdump():
     return tool if tool.is_file() else None
 
 
-def sass_opcodes(library, kernel):
-    """Opcode counts (by mnemonic before the first dot) of the one function
-    whose mangled name holds ``kernel``, from ``cuobjdump -sass`` of the
-    built ``library`` (a ``csrc`` name): a loop that is not unrolled counts
-    once. None where cuobjdump is missing."""
-    import re
-
+def _sass_function(library, kernel):
+    """``cuobjdump -sass`` of the one function of the built ``library`` (a
+    ``csrc`` name) whose mangled name holds ``kernel``; None where
+    cuobjdump is missing."""
     from primia_tpu_torch.ops import _build
 
     tool = _cuobjdump()
@@ -578,17 +584,55 @@ def sass_opcodes(library, kernel):
                           capture_output=True, text=True, check=True, timeout=120).stdout
     funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split()[0]]
     check(len(funcs) == 1, f"cuobjdump shows no single {kernel}")
+    return funcs[0]
+
+
+_SASS_OP = r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)"
+
+
+def sass_opcodes(library, kernel, modifiers=False):
+    """Opcode counts (by mnemonic before the first dot, or with its
+    modifiers) of the one function whose mangled name holds ``kernel``,
+    from ``cuobjdump -sass`` of the built ``library``: a loop that is not
+    unrolled counts once. None where cuobjdump is missing."""
+    import re
+
+    func = _sass_function(library, kernel)
+    if func is None:
+        return None
     counts = {}
-    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", funcs[0]):
-        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    for m in re.finditer(_SASS_OP, func):
+        op = m.group(2) + (m.group(3) if modifiers else "")
+        counts[op] = counts.get(op, 0) + 1
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
-def resource_usage(library):
+def sass_loop_instructions(library, kernel):
+    """Instructions of the outermost loop of the function (from the target
+    of its widest backward branch to that branch), or None where cuobjdump
+    is missing or no branch names its target as an address."""
+    import re
+
+    func = _sass_function(library, kernel)
+    if func is None:
+        return None
+    addrs = [int(m.group(1), 16) for m in re.finditer(_SASS_OP, func)]
+    loops = [(int(t, 16), int(a, 16)) for a, t in
+             re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?BRA\S*\s+0x([0-9a-f]+)", func)
+             if int(t, 16) < int(a, 16)]
+    if not loops:
+        return None
+    head, tail = max(loops, key=lambda ht: ht[1] - ht[0])
+    return sum(head <= a <= tail for a in addrs)
+
+
+def resource_usage(library, mangled=False):
     """{kernel: {"REG": n, "SHARED": bytes, "LOCAL": bytes, ...}} of every
     kernel in the built ``library`` (``cuobjdump -res-usage``): registers a
-    thread, static shared memory, and local memory (spills). None where
-    cuobjdump is missing."""
+    thread, static shared memory, and local memory (spills). Kernels are
+    keyed by their name in ``KERNELS``, or by their mangled names (one
+    each for a template's instantiations). None where cuobjdump is
+    missing."""
     import re
 
     from primia_tpu_torch.ops import _build
@@ -600,7 +644,9 @@ def resource_usage(library):
                           capture_output=True, text=True, check=True, timeout=120).stdout
     out = {}
     for m in re.finditer(r"Function ([^\s:]+):\s*\n\s*([^\n]+)", text):
-        name = next((k for k in KERNEL_NAMES if k in m.group(1)), m.group(1))
+        name = m.group(1)
+        if not mangled:
+            name = next((k for k in KERNEL_NAMES if k in name), name)
         out[name] = {k: int(v) for k, v in re.findall(r"(\w+(?:\[\d+\])?):(\d+)", m.group(2))}
     return out
 
@@ -918,21 +964,69 @@ def phase_bn(torch, seed):
     return {k: {**mean_record(rs), "max_abs_err": worst[k]} for k, rs in records.items()}
 
 
-# K5's work an element besides its 8 bytes (csrc/noise.cu): Philox-4x32-10's
-# 10 rounds of two 32x32-bit products, each a high and a low half, on the
-# INT32 multiplier (64 a clock an SM); log, sqrt and cos each need at least
-# one special-function operation (MUFU, 16 a clock an SM)
-NOISE_IMUL_PER_ELEMENT = 40
-NOISE_MUFU_PER_ELEMENT = 3
+# K5's work an element besides its 8 bytes (csrc/noise.cu). A Philox-4x32-10
+# block serves four elements: its 10 rounds make 19 32x32->64-bit products
+# (round 0's second multiplies a zero word), 38 results of the INT32
+# multiplier (64 a clock an SM), 9.5 an element, which the SASS must hold as
+# at least 19 IMAD.WIDE.U32. A pair (two elements) issues two operations to
+# the 16-a-clock unit of special functions and conversions: sqrtf's MUFU.RSQ
+# and the F2I of sincosf's quadrant (logf and sincosf are otherwise
+# polynomials on the FMA pipe). NOISE_ISSUE_PER_ELEMENT: the instructions
+# the vector path of the grid-stride loop issues for a group of four (the
+# loads and stores of 16 bytes, sincosf's short reduction, sqrtf's common
+# branch), counted on the SASS listing of gaussian_noise_kernel<float, 0>,
+# over 4; the loop's SASS must hold at least as many. An SM issues 4 x 32 a
+# clock.
+NOISE_IMUL_PER_ELEMENT = 9.5
+NOISE_MUFU_PER_ELEMENT = 1.0
+NOISE_ISSUE_PER_ELEMENT = 66.25  # 265 a group
+NOISE_KERNEL_F32 = "gaussian_noise_kernelIfLi0EE"  # the float32 noise instantiation
+NOISE_UNALIGNED = (7, 3, 37, 45)  # rows of 4,995: off the 16-byte grid, a ragged last group
+NOISE_RAGGED_BF16 = (5, 7, 13)  # rows of 91 bfloat16
+
+
+def _noise_bound(nel, sm_max_mhz):
+    """K5's least time at ``nel`` float32 elements: the largest of its
+    bytes (8 an element at 3.35 TB/s), its multiplier results, its MUFU
+    operations and its issued instructions at the card's maximum SM clock;
+    ((ms, "bytes" or "operations"), {term: ms})."""
+    clock = sm_max_mhz * 1e6
+    terms = {"bytes": 8 * nel / PEAK_BYTES_PER_S * 1e3,
+             "imul": nel * NOISE_IMUL_PER_ELEMENT / (132 * 64 * clock) * 1e3,
+             "mufu": nel * NOISE_MUFU_PER_ELEMENT / (132 * 16 * clock) * 1e3,
+             "issue": nel * NOISE_ISSUE_PER_ELEMENT / (132 * 4 * 32 * clock) * 1e3}
+    t_ops = max(terms["imul"], terms["mufu"], terms["issue"])
+    return ((terms["bytes"], "bytes") if terms["bytes"] >= t_ops else (t_ops, "operations")), terms
+
+
+def _noise_stats(torch, out, x, sigma):
+    """Moments of the noise (out - x) / sigma over every element: mean,
+    std, the correlation of each pair's two elements (its cosine and sine
+    branch; rows of even length, so pairs are consecutive), the share
+    beyond 3 sigma and the excess kurtosis."""
+    z = ((out - x) / sigma).double().reshape(-1)
+    zc = z - z.mean()
+    var = float(zc.square().mean())
+    pairs = zc.reshape(-1, 2)
+    return dict(mean=float(z.mean()), std=float(z.std()),
+                pair_corr=float((pairs[:, 0] * pairs[:, 1]).mean()) / var,
+                tail_3sigma=float((z.abs() > 3.0).double().mean()),
+                excess_kurtosis=float(zc.pow(4).mean()) / var ** 2 - 3.0)
 
 
 def phase_noise(torch, seed, sm_max_mhz):
-    """Phase 11: K5 on its own path and against its plain version on the card: one
-    call at the canonical train batch (200 x 3 x 224 x 224 float32) with
-    the counters set to 0 around it; the uniforms bit for bit; the output
-    within 1e-5 (sigma 0.1: the two differ at most in the last bits of
-    log, cos and sqrt); the noise's mean and standard deviation; rows
-    distinct; a ragged bfloat16 case. Returns (record, launches)."""
+    """Phase 11: K5 on its own path and against its plain version on the card:
+    one call at the canonical train batch (200 x 3 x 224 x 224 float32) with
+    the counters set to 0 around it; there, at an unaligned float32 case
+    (rows of 4,995) and at a ragged bfloat16 case, the uniforms bit for bit,
+    the output within 1e-5 (float32; sigma 0.1: the two differ at most in the
+    last bits of log, sin, cos and sqrt) or one bf16 ulp, the same bits over
+    two calls; the noise's moments at 30.1 M samples (mean and std within
+    0.01, the pair correlation under 0.002, the share beyond 3 sigma 0.0027
+    +- 0.0002, the excess kurtosis within 0.02), rows distinct. Times beside
+    the four-term bound, ``torch.normal`` as the library call and a copy of
+    the same bytes as the card's achievable rate; the SASS counts and
+    registers. Returns (record, launches)."""
     from primia_tpu_torch.ops import cuda_kernels as ck
 
     dev = torch.device("cuda")
@@ -944,35 +1038,61 @@ def phase_noise(torch, seed, sm_max_mhz):
     torch.cuda.synchronize()
     launches = read_launches()
     check(launches == idle_launches(gaussian_noise=1), f"noise path launches {launches}")
-    B, n = x.shape[0], x.numel() // x.shape[0]
-    u1, u2 = ck.noise_uniforms(x, key)
-    p1, p2 = ck.noise_uniforms_plain(B, n, key, dev)
-    check(torch.equal(u1, p1) and torch.equal(u2, p2), "K5's uniforms differ from plain")
-    err = float((out - ck.add_gaussian_noise_plain(x, key, sigma)).abs().max())
-    check(err <= 1e-5, f"gaussian_noise differs from plain: max |d| {err}")
-    z = ((out - x) / sigma).double()
-    zm, zs = float(z.mean()), float(z.std())
-    check(abs(zm) < 0.01 and abs(zs - 1.0) < 0.01 and not torch.equal(out[0], out[1]),
-          f"gaussian_noise: noise mean {zm}, std {zs}, or rows equal")
-    xb = torch.rand((5, 7, 13), generator=g, device=dev).to(torch.bfloat16)
-    ob = ck.add_gaussian_noise(xb, key, sigma)
-    torch.cuda.synchronize()
-    db = (ob.float() - ck.add_gaussian_noise_plain(xb, key, sigma).float()).abs()
-    check(bool((db <= 2.0 ** -7 * ob.float().abs() + 1e-6).all()),
-          f"gaussian_noise (bf16, ragged) more than 1 ulp from plain: {float(db.max())}")
+    cases = [(x, out), (torch.rand(NOISE_UNALIGNED, generator=g, device=dev), None),
+             (torch.rand(NOISE_RAGGED_BF16, generator=g, device=dev).to(torch.bfloat16), None)]
+    errs = {}
+    for xc, oc in cases:
+        name = "x".join(map(str, xc.shape)) + ("" if xc.dtype == torch.float32 else "_bf16")
+        oc = ck.add_gaussian_noise(xc, key, sigma) if oc is None else oc
+        torch.cuda.synchronize()
+        B, n = xc.shape[0], xc.numel() // xc.shape[0]
+        got, want = ck.noise_uniforms(xc, key), ck.noise_uniforms_plain(B, n, key, dev)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K5's uniforms differ from plain at {name}")
+        plain = ck.add_gaussian_noise_plain(xc, key, sigma).float()
+        d = (oc.float() - plain).abs()
+        errs[name] = float(d.max())
+        if xc.dtype == torch.float32:
+            check(errs[name] <= 1e-5, f"gaussian_noise differs from plain at {name}: {errs[name]}")
+        else:
+            check(bool((d <= 2.0 ** -7 * oc.float().abs() + 1e-6).all()),
+                  f"gaussian_noise ({name}) more than 1 ulp from plain: {errs[name]}")
+        check(torch.equal(oc, ck.add_gaussian_noise(xc, key, sigma)),
+              f"gaussian_noise gives other bits on a second call at {name}")
+    st = _noise_stats(torch, out, x, sigma)
+    check(abs(st["mean"]) < 0.01 and abs(st["std"] - 1.0) < 0.01
+          and abs(st["pair_corr"]) < 0.002 and abs(st["tail_3sigma"] - 0.0027) < 0.0002
+          and abs(st["excess_kurtosis"]) < 0.02 and not torch.equal(out[0], out[1]),
+          f"gaussian_noise: moments {st} off, or rows equal")
     nel = x.numel()
-    clock = sm_max_mhz * 1e6
-    t_imul = nel * NOISE_IMUL_PER_ELEMENT / (132 * 64 * clock) * 1e3
-    t_mufu = nel * NOISE_MUFU_PER_ELEMENT / (132 * 16 * clock) * 1e3
-    t_ops, t_bytes = max(t_imul, t_mufu), 8 * nel / PEAK_BYTES_PER_S * 1e3
+    bnd, terms = _noise_bound(nel, sm_max_mhz)
+    lib_g = torch.Generator(device=dev).manual_seed(seed)
     r = timed_record(torch, "gaussian_noise", lambda: ck.add_gaussian_noise(x, key, sigma),
-                     lambda: ck.add_gaussian_noise_plain(x, key, sigma), None,
-                     (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
-                     plain_iters=2)
-    _say_times("gaussian_noise", r, shape="x".join(map(str, x.shape)), max_abs_err=err,
-               uniforms_equal=True, noise_mean=zm, noise_std=zs, imul_bound_ms=f"{t_imul:.6f}",
-               mufu_bound_ms=f"{t_mufu:.6f}", bf16_ragged_max_abs_diff=float(db.max()))
-    return {**r, "max_abs_err": err}, launches
+                     lambda: ck.add_gaussian_noise_plain(x, key, sigma),
+                     lambda: torch.normal(x, sigma, generator=lib_g), bnd, plain_iters=2)
+    dst = torch.empty_like(x)
+    copy_ms = cuda_ms(torch, lambda: dst.copy_(x), 20)
+    _say_times("gaussian_noise", r, shape="x".join(map(str, x.shape)), max_abs_err=errs,
+               uniforms_equal=True, **{k: f"{v:.6f}" for k, v in st.items()},
+               **{f"{k}_bound_ms": f"{v:.6f}" for k, v in terms.items()},
+               library="torch.normal")
+    say("gaussian_noise", reference="copy_ (not the bound)", bytes=8 * nel,
+        copy_ms=f"{copy_ms:.6f}", copy_tb_per_s=f"{8 * nel / copy_ms / 1e9:.4f}",
+        kernel_over_copy=f"{r['ms'] / copy_ms:.4f}")
+    sass = sass_opcodes("noise", NOISE_KERNEL_F32, modifiers=True)
+    loop = sass_loop_instructions("noise", NOISE_KERNEL_F32)
+    res = resource_usage("noise", mangled=True)
+    say("gaussian_noise", sass_opcodes="not available" if sass is None else json.dumps(sass),
+        loop_instructions=loop, resources=json.dumps(res))
+    if sass is not None:
+        wide = sum(v for k, v in sass.items() if k.startswith("IMAD.WIDE.U32"))
+        xu = sum(v for k, v in sass.items() if k.startswith(("MUFU.RSQ", "F2I.NTZ")))
+        check(2 * wide >= 4 * NOISE_IMUL_PER_ELEMENT and xu >= 4 * NOISE_MUFU_PER_ELEMENT,
+              f"K5's SASS holds {wide} IMAD.WIDE.U32 and {xu} MUFU.RSQ and F2I.NTZ, fewer "
+              "than its bound counts")
+        check(loop is None or loop >= 4 * NOISE_ISSUE_PER_ELEMENT,
+              f"K5's loop holds {loop} instructions, fewer than its bound counts")
+    return {**r, "max_abs_err": max(errs.values())}, launches
 
 
 def phase_ring(torch, seed):

@@ -5,8 +5,14 @@ Port of ``primia_tpu/ops/pallas_kernels.py``.
 - :func:`add_gaussian_noise` is K5, in ``primia_tpu_torch/csrc/noise.cu``
   (its header note names the TPU kernel, ``_noise_kernel``, and states
   the bound): x + sigma * N(0, 1) with one stream per batch row, from a
-  Philox-4x32-10 written in the kernel, key (seed, row) and counter
-  (element index in the row, 0, 0, 0), so no noise tensor is stored.
+  Philox-4x32-10 written in the kernel, key (seed, row), one block for
+  four consecutive elements of a row (counter (g mod 2^32, g >> 32, 0, 0)
+  for group g = j >> 2), so no noise tensor is stored. The block's words
+  (w0, w1) are pair 2g and (w2, w3) pair 2g + 1; pair p gives element 2p
+  the cosine branch of Box-Muller and element 2p + 1 the sine branch of
+  the same (u1, u2). The TPU kernel draws two words for every element and
+  keeps only the cosine branch: the port deviates on purpose, with the
+  same N(0, 1) for each element and independent elements.
   :func:`add_gaussian_noise_plain` computes the same Philox words with
   32-bit words held in int64, as ``mpc/prg.py`` does for Threefry. The
   TPU's hardware bits cannot be reproduced, so the JAX package and the
@@ -21,12 +27,15 @@ Port of ``primia_tpu/ops/pallas_kernels.py``.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches the kernel or raises. ``launches`` counts K5's launches, one
-per wrapper call that reached the kernel.
+per wrapper call that reached the kernel. The launch follows
+:func:`plan_noise`: one wave of the blocks the card holds at once, each
+thread walking (row, group) items in a grid stride.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Tuple
@@ -39,6 +48,7 @@ _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NOISE_THREADS = 256  # csrc/noise.cu's block
 
 
 def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,12 +60,13 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return (p_hi >> 16) + (t >> 32), t & _MASK
 
 
-def philox_words_plain(rows: int, n: int, seed: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first two words of Philox-4x32-10 with key (seed, row) at counter
-    (j, 0, 0, 0), for each row and element j < n: two (rows, n) int64
-    tensors of 32-bit words."""
-    j = torch.arange(n, dtype=torch.int64, device=device).expand(rows, n)
-    c0, c1 = j & _MASK, j >> 32
+def philox_words_plain(rows: int, groups: int, seed: int, device) -> Tuple[torch.Tensor, ...]:
+    """The four words of Philox-4x32-10 with key (seed, row) at counter
+    (g mod 2^32, g >> 32, 0, 0), for each row and group g < groups (the
+    elements 4g .. 4g + 3 of the row): four (rows, groups) int64 tensors
+    of 32-bit words."""
+    g = torch.arange(groups, dtype=torch.int64, device=device).expand(rows, groups)
+    c0, c1 = g & _MASK, g >> 32
     c2 = c3 = torch.zeros_like(c0)
     k0 = seed & _MASK
     k1 = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
@@ -65,17 +76,26 @@ def philox_words_plain(rows: int, n: int, seed: int, device) -> Tuple[torch.Tens
         hi0, lo0 = _mulhilo(c0, _M0)
         hi1, lo1 = _mulhilo(c2, _M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1
+    return c0, c1, c2, c3
+
+
+def _pair_uniforms(rows: int, n: int, seed: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u1, u2), float32 (rows, ceil(n / 2)), of each pair p: the top 24
+    bits of its two words over 2^24, u1 + 1e-7
+    (``pallas_kernels.py:_noise_kernel``)."""
+    groups = -(-n // 4)
+    w = torch.stack(philox_words_plain(rows, groups, seed, device), -1)
+    w = w.reshape(rows, 2 * groups, 2)[:, :-(-n // 2)]  # pair 2g: (w0, w1), 2g + 1: (w2, w3)
+    scale = torch.tensor(2.0 ** -24, dtype=torch.float32, device=device)
+    u = (w >> 8).to(torch.float32) * scale
+    return u[..., 0] + torch.tensor(1e-7, dtype=torch.float32, device=device), u[..., 1]
 
 
 def noise_uniforms_plain(rows: int, n: int, seed: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u1, u2), float32 (rows, n): the top 24 bits of each word over 2^24,
-    u1 + 1e-7 (``pallas_kernels.py:_noise_kernel``)."""
-    b1, b2 = philox_words_plain(rows, n, seed, device)
-    scale = torch.tensor(2.0 ** -24, dtype=torch.float32, device=device)
-    u1 = (b1 >> 8).to(torch.float32) * scale + torch.tensor(1e-7, dtype=torch.float32,
-                                                            device=device)
-    return u1, (b2 >> 8).to(torch.float32) * scale
+    """(u1, u2), float32 (rows, n): each element's pair's uniforms, the
+    same for elements 2p and 2p + 1."""
+    return tuple(u.repeat_interleave(2, dim=1)[:, :n]
+                 for u in _pair_uniforms(rows, n, seed, device))
 
 
 def _check_noise(x: torch.Tensor) -> Tuple[int, int]:
@@ -89,20 +109,60 @@ def _check_noise(x: torch.Tensor) -> Tuple[int, int]:
 def add_gaussian_noise_plain(x: torch.Tensor, seed: int, sigma: float) -> torch.Tensor:
     """:func:`add_gaussian_noise` in plain PyTorch."""
     B, n = _check_noise(x)
-    u1, u2 = noise_uniforms_plain(B, n, seed, x.device)
+    u1, u2 = _pair_uniforms(B, n, seed, x.device)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
     r = torch.sqrt(-2.0 * torch.log(u1))
-    nrm = r * torch.cos(f32(2.0 * math.pi) * u2)
+    theta = f32(2.0 * math.pi) * u2
+    nrm = torch.stack((r * torch.cos(theta), r * torch.sin(theta)), -1).reshape(B, -1)[:, :n]
     noise = (f32(sigma) * nrm).to(x.dtype)
     return (x.reshape(B, n) + noise).reshape(x.shape)
 
 
-def _launch_noise(fn: str, *args) -> None:
-    lib = _lib()
-    err = getattr(lib, fn)(*args)
+@dataclasses.dataclass(frozen=True)
+class NoisePlan:
+    """K5's launch: ``grid`` blocks of :data:`NOISE_THREADS` threads over
+    rows * ``groups`` items (a row's groups of four elements, the last one
+    ragged); the grid's threads make one stride of ``step_rows`` rows and
+    ``step_groups`` groups."""
+    grid: int
+    groups: int
+    step_rows: int
+    step_groups: int
+
+
+def plan_noise(rows: int, n: int, blocks_per_sm: int, sms: int) -> NoisePlan:
+    """K5's plan for (rows, n): as many blocks as the card holds at once
+    (``blocks_per_sm`` on each of ``sms``), one wave, and no more blocks
+    than the items need."""
+    groups = -(-n // 4)
+    grid = max(1, min(-(-rows * groups // NOISE_THREADS), blocks_per_sm * sms))
+    step_rows, step_groups = divmod(grid * NOISE_THREADS, groups)
+    return NoisePlan(grid, groups, step_rows, step_groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, dtype: int, mode: int) -> int:
+    with torch.cuda.device(device_index):
+        n = _lib().gaussian_noise_blocks_per_sm(dtype, mode)
+    if n <= 0:
+        _raise_on("gaussian_noise_blocks_per_sm", -n)
+    return n
+
+
+def card_plan(device: torch.device, rows: int, n: int, dtype: int = 0,
+              mode: int = 0) -> NoisePlan:
+    """:func:`plan_noise` for the card ``device``: its SM count and the
+    kernel's occupancy from the CUDA occupancy API (dtype 0 = float32,
+    1 = bfloat16; mode 0 = noise, 1 = uniforms)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan_noise(rows, n, _blocks_per_sm(index, dtype, mode), sms)
+
+
+def _raise_on(fn: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
-                           f"({lib.noise_error_string(err).decode()})")
+                           f"({_lib().noise_error_string(err).decode()})")
 
 
 @functools.cache
@@ -111,21 +171,25 @@ def _lib():
     from primia_tpu_torch.ops._build import load_library
 
     lib = load_library("noise")
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gaussian_noise.argtypes = [vp, vp, ci, ll, ci, ctypes.c_uint, ctypes.c_float, vp]
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.gaussian_noise_blocks_per_sm.argtypes = [ci, ci]
+    lib.gaussian_noise_blocks_per_sm.restype = ci
+    lib.gaussian_noise.argtypes = [vp, vp, cu, cu, ci, cu, ctypes.c_float, cu, cu, cu, cu, vp]
     lib.gaussian_noise.restype = ci
-    lib.gaussian_noise_uniforms.argtypes = [vp, ci, ll, ctypes.c_uint, vp]
+    lib.gaussian_noise_uniforms.argtypes = [vp, cu, cu, cu, cu, cu, cu, cu, vp]
     lib.gaussian_noise_uniforms.restype = ci
     lib.noise_error_string.argtypes = [ci]
     lib.noise_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _cuda(x: torch.Tensor) -> None:
+def _cuda(x: torch.Tensor, n: int) -> None:
     if x.device.type != "cuda":
         raise RuntimeError(f"K5 runs on CPU or CUDA tensors, not {x.device}")
     if x.shape[0] > 65535:
         raise ValueError(f"K5 takes at most 65,535 rows, got {x.shape[0]}")
+    if n >= 1 << 31:
+        raise ValueError(f"K5 takes rows of fewer than 2^31 elements, got {n}")
 
 
 def add_gaussian_noise(x: torch.Tensor, seed: int, sigma: float) -> torch.Tensor:
@@ -136,13 +200,17 @@ def add_gaussian_noise(x: torch.Tensor, seed: int, sigma: float) -> torch.Tensor
     B, n = _check_noise(x)
     if x.device.type == "cpu":
         return add_gaussian_noise_plain(x, seed, sigma)
-    _cuda(x)
+    _cuda(x, n)
     x = x.contiguous()
     out = torch.empty_like(x)
+    dtype = _DTYPES[x.dtype]
+    p = card_plan(x.device, B, n, dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _launch_noise("gaussian_noise", x.data_ptr(), out.data_ptr(), B, n, _DTYPES[x.dtype],
-                      seed & _MASK, float(sigma), stream)
+        err = _lib().gaussian_noise(x.data_ptr(), out.data_ptr(), B, n, dtype, seed & _MASK,
+                                    float(sigma), p.grid, p.groups, p.step_rows, p.step_groups,
+                                    stream)
+    _raise_on("gaussian_noise", err)
     launches["gaussian_noise"] += 1
     return out
 
@@ -155,9 +223,12 @@ def noise_uniforms(x: torch.Tensor, seed: int) -> Tuple[torch.Tensor, torch.Tens
     B, n = _check_noise(x)
     if x.device.type == "cpu":
         return noise_uniforms_plain(B, n, seed, x.device)
-    _cuda(x)
+    _cuda(x, n)
     out = torch.empty((B, n, 2), dtype=torch.float32, device=x.device)
+    p = card_plan(x.device, B, n, mode=1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _launch_noise("gaussian_noise_uniforms", out.data_ptr(), B, n, seed & _MASK, stream)
+        err = _lib().gaussian_noise_uniforms(out.data_ptr(), B, n, seed & _MASK, p.grid,
+                                             p.groups, p.step_rows, p.step_groups, stream)
+    _raise_on("gaussian_noise_uniforms", err)
     return out[..., 0], out[..., 1]

@@ -532,12 +532,14 @@ def test_bn_train_on_the_card_matches_f_batch_norm(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [((200, 3, 224, 224), torch.float32),
                                          ((3, 1000), torch.float32),
-                                         ((5, 7, 13), torch.bfloat16)], ids=["train", "rows",
-                                                                           "bf16"])
+                                         ((5, 7, 13), torch.bfloat16),
+                                         ((7, 3, 37, 45), torch.float32)],
+                         ids=["train", "rows", "bf16", "unaligned"])
 def test_gaussian_noise_matches_plain(cuda_device, shape, dtype):
     """The uniforms bit for bit; the output within 1e-5 (float32) or one
-    bf16 ulp: the two differ at most in the last bits of log, cos and
-    sqrt."""
+    bf16 ulp: the two differ at most in the last bits of log, sin, cos and
+    sqrt. 7 x 3 x 37 x 45 has rows of 4,995 elements: most rows start off
+    the 16-byte grid and every row ends in a group of 3 (the scalar path)."""
     from primia_tpu_torch.ops import cuda_kernels
 
     x = torch.rand(shape, device=cuda_device).to(dtype)
@@ -553,6 +555,26 @@ def test_gaussian_noise_matches_plain(cuda_device, shape, dtype):
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.abs().max())
     torch.testing.assert_close(out.float(), want, rtol=0, atol=tol)
     assert not torch.equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((16, 3, 64, 64), torch.float32),
+                                         ((7, 3, 37, 45), torch.float32),
+                                         ((5, 7, 13), torch.bfloat16)],
+                         ids=["aligned", "unaligned", "bf16"])
+def test_gaussian_noise_gives_the_same_bits_twice(cuda_device, shape, dtype):
+    """Two calls with one seed give the same bits (the stream is a function
+    of (seed, row, element), whatever thread takes an element); another
+    seed does not."""
+    from primia_tpu_torch.ops import cuda_kernels
+
+    x = torch.rand(shape, device=cuda_device).to(dtype)
+    a = cuda_kernels.add_gaussian_noise(x, 123, 0.1)
+    assert torch.equal(a, cuda_kernels.add_gaussian_noise(x, 123, 0.1))
+    assert not torch.equal(a, cuda_kernels.add_gaussian_noise(x, 124, 0.1))
+    plan = cuda_kernels.card_plan(cuda_device, shape[0], x.numel() // shape[0])
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert plan.grid <= props.multi_processor_count * 2048 // cuda_kernels.NOISE_THREADS
 
 
 @pytest.mark.cuda
