@@ -147,21 +147,40 @@ Phases, each reported on its own line; any failure exits nonzero:
                   switches the BN running statistics within 2e-2, and the
                   conv and BN gamma/beta gradients no further from an f32
                   step's than 1.5 times the default bf16 step's).
-15. kernels       one JSON line with each kernel's error, times, bound and
+15. federated     slice 4's main path: the train CLI with --train_federated on
+                  the canonical federated INI (configs/torch/pneumonia-resnet-
+                  pretrained-federated.ini: ResNet-18 at 224 px, batch 200 a
+                  node, mixup, CLAHE, the full augmentation chain; epochs = 5
+                  with repetitions_dataset = 5 is one epoch) on cuda, from the
+                  repository root (configs/websetting/config.csv names alice,
+                  bob and charlie), on synthetic DICOM shards of 400, 300 and
+                  200 images and 60 validation images: 10 federated steps, 25
+                  node steps, 4 secure aggregations; counters set to 0 just
+                  before and read just after (K1 four times and CLAHE once a
+                  node step, nothing else); one node-stacked tree aggregated
+                  on the card and on the CPU (int64 reveals equal from
+                  different shares, floats equal, within N * 2^-(f+1) of the
+                  plain average); p50 of a federated step (3 node steps at
+                  batch 200), of a secure and a plain aggregation of the whole
+                  model and of a FedAvg round (3 steps and one aggregation),
+                  busy ms and idle share from the profiler, peak memory.
+16. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
                   K8, the noise phase for K5; every path's counts beside
-                  them, and a kernel launched no time on its path fails the
-                  run), the card's name and power limit, and as the last
-                  line {"ok": true, "device": {...}}.
+                  them, K1 and CLAHE also on the federated path, and a kernel
+                  launched no time on any of its paths fails the run), the
+                  card's name and power limit, and as the last line
+                  {"ok": true, "device": {...}}.
 
 Nothing here imports JAX or the JAX package. Work files go to
 ``build/chip_smoke/``, and the profile tables to ``--profile_out`` (default
 ``build/chip_smoke/profile.txt``; the train step's, the encrypted
-predict's and the default and switched steps of phase 14 beside it, with
-``.train``, ``.encrypt`` or ``.train_optin.{default,switched}`` before the
-suffix). Phases run in the order 1-5, 8-12, 6, 13, 7, 14.
+predict's, the default and switched steps of phase 14 and the federated
+step beside it, with ``.train``, ``.encrypt``,
+``.train_optin.{default,switched}`` or ``.federated`` before the suffix).
+Phases run in the order 1-5, 8-12, 6, 13, 7, 14, 15.
 """
 
 from __future__ import annotations
@@ -192,10 +211,14 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 KERNELS = {
     # K3: both TPU kernels (the LUTs, their apply) and the / 255 after them
+    # "path" is the path whose count the kernels line reports; "also" names
+    # the other paths that must launch the kernel (the federated nodes' steps)
     "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
-              "kernel": ("clahe_kernel",), "source": "primia_tpu_torch/csrc/clahe.cu"},
+              "also": ("federated",), "kernel": ("clahe_kernel",),
+              "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
-                  "kernel": ("tent_rows_kernel",), "source": "primia_tpu_torch/csrc/tent.cu"},
+                  "also": ("federated",), "kernel": ("tent_rows_kernel",),
+                  "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
     # (PRIMIA_WARP_TWOPASS=0) or the affine ranges are not two-pass safe
     "tent_bilinear": {"replaces": "primia_tpu/ops/pallas_tent.py:54",
@@ -1743,6 +1766,260 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
     return launches
 
 
+FED_CONFIG = ROOT / "configs" / "torch" / "pneumonia-resnet-pretrained-federated.ini"
+# uneven shards, so a node whose shard has run out sits out (masking):
+# 400, 300 and 200 images, each split over the three classes
+FED_PER_CLASS = ((134, 133, 133), (100, 100, 100), (67, 67, 66))
+FED_TIMED_STEPS, FED_TIMED_AGGREGATIONS, FED_TIMED_ROUNDS = 12, 8, 4
+
+
+def write_federated_dataset(np, rng, root):
+    """``root/worker1..3/<class>/`` (FED_PER_CLASS) and
+    ``root/validation/<class>/`` DICOMs, each class a little brighter: the
+    server-simulation layout of ``data/distribute.py``."""
+    from primia_tpu_torch.data import write_dicom
+
+    shards = [(f"worker{w + 1}", n) for w, n in enumerate(FED_PER_CLASS)]
+    for folder, counts in shards + [("validation", (TEST_PER_CLASS,) * len(CLASSES))]:
+        for ci, (cls, n) in enumerate(zip(CLASSES, counts)):
+            d = root / folder / cls
+            d.mkdir(parents=True)
+            imgs = np.clip(synthetic_xrays(np, rng, n).astype(np.int16) + 12 * ci, 0, 255)
+            for i, a in enumerate(imgs.astype(np.uint8)):
+                write_dicom(d / f"xray_{i:03d}.dcm", a)
+
+
+def phase_federated(torch, seed, work, profile_out):
+    """Phase 15: slice 4's main path, FedAvg with secure aggregation over 3
+    simulated hospital nodes on the card. The train CLI with
+    ``--train_federated`` on the canonical federated INI (ResNet-18 at 224
+    px, batch 200 a node, mixup, CLAHE, the full augmentation chain; only
+    the epochs cut: 5 with ``repetitions_dataset = 5`` is one epoch),
+    run from the repository root, so ``configs/websetting/config.csv``
+    names the workers alice, bob and charlie; uneven shards of 400, 300
+    and 200 images give 10 federated steps of 2 + 2 + 1 batches a pass, 25
+    node steps and 4 aggregations (``sync_every_n_batch = 3`` and the
+    epoch's end). Counters set to 0 just before and read just after: K1
+    four times and CLAHE once a node step (the eval step runs no CLAHE,
+    as the JAX package's). Then, on the nodes as the CLI builds them: the
+    same node-stacked tree aggregated on the card and on the CPU reveals
+    the same int64 ring sums from different shares and the same floats,
+    within N * 2^-(f+1) (plus half a float32 ulp) of the plain average;
+    and the times: a federated step (3 node steps at batch 200, in node
+    order on one stream), a secure and a plain aggregation of the whole
+    ResNet-18, a FedAvg round (``sync_every_n_batch`` steps and one secure
+    aggregation), the device's busy time and idle share over 3 steps and
+    over 2 aggregations from the profiler, and peak memory. Returns the
+    CLI run's launch counts."""
+    import numpy as np
+
+    from primia_tpu_torch.cli import train as train_cli
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.data import BatchLoader, to_device_resident
+    from primia_tpu_torch.mpc import fixed
+    from primia_tpu_torch.mpc import shares as S
+    from primia_tpu_torch.mpc.aggregation import (AShareSumNodes, _is_count_leaf, _leaf_key,
+                                                  map_with_path, plain_fedavg, secure_fedavg)
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.nn.jax_params import to_jax_tree
+    from primia_tpu_torch.parallel.federated import FederatedNodes, setup_federated
+    from primia_tpu_torch.train import checkpoint as ckpt
+
+    root = work / "federated"
+    write_federated_dataset(np, np.random.default_rng(seed + 2), root)
+    text = FED_CONFIG.read_text()
+    check("epochs = 40" in text, f"unexpected federated config: {FED_CONFIG}")
+    ini = work / "federated.ini"
+    ini.write_text(text.replace("epochs = 40", "epochs = 5"))
+    args = Arguments.from_ini(ini, cmd_args=argparse.Namespace(data_dir=str(root),
+                                                               train_federated=True))
+    check(args.epochs == 1 and args.batch_size == TRAIN_BATCH and args.repetitions_dataset == 5
+          and args.sync_every_n_batch == 3 and args.weighted_averaging and args.mixup
+          and args.clahe and args.elastic and not args.unencrypted_aggregation,
+          f"unexpected federated config: {FED_CONFIG}")
+    per_pass = [-(-sum(n) // TRAIN_BATCH) for n in FED_PER_CLASS]
+    num_batches = [b * args.repetitions_dataset for b in per_pass]
+    fed_steps = max(num_batches)
+    node_steps = sum(num_batches)
+    aggregations = (fed_steps - 1) // args.sync_every_n_batch + 1
+    say("federated", config=FED_CONFIG.relative_to(ROOT), epochs=1,
+        shards=json.dumps([sum(n) for n in FED_PER_CLASS]), batch=TRAIN_BATCH,
+        federated_steps=fed_steps, node_steps=node_steps, aggregations=aggregations)
+
+    # the main path: the train CLI, in-process, on cuda, from the repo root
+    weights_dir = ROOT / "model_weights"
+    had_weights_dir = weights_dir.exists()
+    before = set(weights_dir.glob("final_federated_*.pt")) if had_weights_dir else set()
+    argv = ["--config", str(ini), "--data_dir", str(root), "--train_federated",
+            "--save_file", str(work / "federated_runs.csv"), "--device", "cuda"]
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        reset_launches()
+        torch.manual_seed(seed)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            best = train_cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        os.chdir(cwd)
+        finals = sorted(set(weights_dir.glob("final_federated_*.pt")) - before)
+        for f in finals:
+            shutil.move(str(f), str(work / f.name))
+        if not had_weights_dir:
+            shutil.rmtree(weights_dir, ignore_errors=True)
+    (work / "federated_cli.log").write_text(out.getvalue())
+    want = idle_launches(tent_rows=4 * node_steps, clahe=node_steps)
+    check(launches == want, f"federated CLI launches {launches}, expected {want}")
+    check(len(finals) == 1 and np.isfinite(best),
+          f"federated CLI: best objective {best}, {len(finals)} final checkpoints")
+    state = ckpt.load_model(work / finals[0].name)
+    osd = state["optim_state_dict"]
+    check(state["epoch"] == 1 and state["args"].train_federated
+          and sorted(osd) == ["alice", "bob", "charlie"]
+          and all(int(osd[w].step) == 0 for w in osd),
+          f"federated checkpoint: epoch {state['epoch']}, optimizer states "
+          f"{ {w: int(s.step) for w, s in osd.items()} }")
+    losses = [float(line.split()[-1]) for line in out.getvalue().splitlines()
+              if line.startswith("Train Epoch:")]
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"federated train losses {losses}")
+    say("federated", cli_seconds=f"{cli_s:.4f}", launches=json.dumps(launches),
+        tent_rows_per_node_step=launches["tent_rows"] / node_steps,
+        clahe_per_node_step=launches["clahe"] / node_steps, eval_clahe_launches=0,
+        workers=",".join(sorted(osd)), epoch_loss=losses[0], best_mcc_percent=best)
+
+    # the nodes as the CLI builds them, for the checks and the times
+    dev = torch.device("cuda")
+    os.chdir(ROOT)
+    try:
+        (names, node_imgs, node_labels, _, _, mean, std,
+         _) = setup_federated(args, verbose=False, device=dev)
+    finally:
+        os.chdir(cwd)
+    torch.manual_seed(seed)
+    model = create_model(args, num_classes=3, device="cpu").to(dev)
+    nodes = FederatedNodes(args, model, len(names), mean, std, None, dev)
+    loaders = [BatchLoader(to_device_resident(x, dev), y, TRAIN_BATCH, seed=seed + i)
+               for i, (x, y) in enumerate(zip(node_imgs, node_labels))]
+    batches = [list(loader) for loader in loaders]
+    weights = np.array(num_batches) / node_steps
+    lr = 1e-4
+
+    def fed_step(i):
+        losses = nodes.step([b[i % len(b)] for b in batches], lr)
+        return torch.stack(losses).mean()
+
+    for i in range(3):
+        fed_step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(FED_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fed_step(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(loss)), f"federated step {i}: loss {float(loss)}")
+    avgs = profile(torch, lambda: [fed_step(i) for i in range(3)], 1)
+    path = profile_out.with_name(profile_out.stem + ".federated" + profile_out.suffix)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
+    cats = {k: v / 3 for k, v in device_ms_by_category(avgs, 1).items()}
+
+    # one node-stacked tree, aggregated on the card and on the CPU
+    trees = [dict(zip(("params", "state"), to_jax_tree(m))) for m in nodes.models]
+    stacked = {d: map_with_path(lambda p, _, d=d: torch.from_numpy(
+        np.stack([_leaf(t, p) for t in trees])).to(d), trees[0]) for d in ("cuda", "cpu")}
+    key, frac = (seed, 777, 1), args.precision_fractional
+    on = {d: secure_fedavg(key, stacked[d], weights, frac) for d in stacked}
+    plain = plain_fedavg(stacked["cpu"], weights)
+    n_nodes, same_reveal, shares_differ, max_off_plain, n_leaves = len(names), True, 0, 0.0, 0
+    flat = []
+    map_with_path(lambda p, leaf: flat.append((p, leaf)), stacked["cpu"])
+    for path, leaf in flat:
+        if _is_count_leaf(path):
+            continue
+        n_leaves += 1
+        w = torch.from_numpy(weights).reshape((-1,) + (1,) * (leaf.dim() - 1))
+        reveal, share0 = {}, {}
+        for d in ("cuda", "cpu"):
+            ring = fixed.encode(_leaf(stacked[d], path).double() * w.to(d), frac)
+            sh = S.share(S.stream(torch.device(d), *key, _leaf_key(path)), ring)
+            reveal[d] = S.reconstruct(AShareSumNodes(sh)).cpu()
+            share0[d] = sh.data[0].cpu()
+        same_reveal &= torch.equal(reveal["cuda"], reveal["cpu"])
+        shares_differ += not torch.equal(share0["cuda"], share0["cpu"])
+        got, ref = _leaf(on["cuda"], path).cpu(), _leaf(on["cpu"], path)
+        check(got.dtype == ref.dtype and torch.equal(got, ref),
+              f"secure aggregate of {path}: the card's floats differ from the CPU's")
+        exact = (leaf.double() * w).sum(0)
+        bound = n_nodes * 2.0 ** -(frac + 1) + exact.abs() * 2.0 ** -24
+        off = (ref.double() - exact).abs()
+        check(bool((off <= bound).all()), f"secure aggregate of {path}: {float(off.max())} from "
+              f"the plain average, over N * 2^-(f+1)")
+        max_off_plain = max(max_off_plain, float((ref - _leaf(plain, path)).abs().max()))
+    check(same_reveal, "the card's and the CPU's int64 reveals differ")
+    check(shares_differ == n_leaves, f"the card's and the CPU's shares agree on "
+          f"{n_leaves - shares_differ} of {n_leaves} leaves: the check does not cover the shares")
+    say("federated", card_vs_cpu="bit-equal", leaves=n_leaves, reveals_int64="equal",
+        shares="differ", max_abs_secure_minus_plain=max_off_plain,
+        bound=n_nodes * 2.0 ** -(frac + 1))
+
+    # the aggregations and the round
+    def timed(fn, n):
+        fn()
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.percentile(ms, 50))
+
+    rounds = iter(range(2, 10 ** 6))
+    secure = lambda: nodes.aggregate(weights, (seed, 777, next(rounds)))  # noqa: E731
+    secure_ms = timed(secure, FED_TIMED_AGGREGATIONS)
+    plain_ms = timed(lambda: nodes.aggregate(weights, None), FED_TIMED_AGGREGATIONS)
+    agg_avgs = profile(torch, lambda: [secure() for _ in range(2)], 1)
+    agg_busy = sum(device_ms_by_category(agg_avgs, 2).values())
+    agg_ops = sum(e.count for e in agg_avgs if e.key.startswith("aten::")) / 2
+
+    def fed_round():
+        for i in range(args.sync_every_n_batch):
+            fed_step(i)
+        secure()
+        nodes.reset_optimizers()
+
+    round_ms = timed(fed_round, FED_TIMED_ROUNDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    q = np.percentile(step_ms, [50, 75])
+    busy = sum(cats.values())
+    imgs = n_nodes * TRAIN_BATCH
+    say("federated", nodes=n_nodes, batch_per_node=TRAIN_BATCH, steps_timed=len(step_ms),
+        fed_step_ms_p50=f"{q[0]:.4f}", fed_step_ms_p75=f"{q[1]:.4f}",
+        img_per_s_p50=f"{imgs / (q[0] * 1e-3):.2f}", device_busy_ms_per_step=f"{busy:.4f}",
+        idle_share=f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured",
+        secure_agg_ms_p50=f"{secure_ms:.4f}", plain_agg_ms_p50=f"{plain_ms:.4f}",
+        secure_agg_busy_ms=f"{agg_busy:.4f}", secure_agg_aten_ops=f"{agg_ops:.1f}",
+        secure_agg_idle_share=f"{1.0 - agg_busy / secure_ms:.4f}" if agg_busy > 0
+        else "not measured",
+        round_s_p50=f"{round_ms * 1e-3:.4f}", round_steps=args.sync_every_n_batch,
+        peak_memory_gb=f"{peak_gb:.3f}", cli_seconds=f"{cli_s:.4f}")
+    say("federated", device_ms_per_step=json.dumps({k: round(v, 6) for k, v in cats.items()}))
+    return launches
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1796,9 +2073,11 @@ def main(argv=None) -> int:
         by_path["train"], by_path["train_twopass0"], ctx = phase_train(torch, opts.seed, work,
                                                                        profile_out)
         by_path["train_optin"] = phase_train_optin(torch, opts.seed, work, profile_out, ctx)
+        by_path["federated"] = phase_federated(torch, opts.seed, work, profile_out)
         for name, meta in KERNELS.items():
-            check(by_path[meta["path"]][name] > 0,
-                  f"{name} was not launched on its path {meta['path']}: {by_path}")
+            for path in (meta["path"], *meta.get("also", ())):
+                check(by_path[path][name] > 0,
+                      f"{name} was not launched on its path {path}: {by_path}")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1809,6 +2088,7 @@ def main(argv=None) -> int:
         r = rec[name]
         line.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"], "launches": by_path[meta["path"]][name],
+                     "paths": [meta["path"], *meta.get("also", ())],
                      "launches_by_path": {p: n[name] for p, n in by_path.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

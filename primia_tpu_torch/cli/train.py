@@ -6,8 +6,10 @@ reference ``train.py:555-631``), plus ``--device``::
     python -m primia_tpu_torch.cli.train --config configs/torch/pneumonia-resnet-pretrained.ini \\
         --data_dir data/train [--device cuda|cpu]
 
-Runs on CUDA unless ``--device cpu``. Single-site training is ported;
-``--train_federated`` (slice 4) and DP configs (slice 5) raise
+Runs on CUDA unless ``--device cpu``. Single-site training and the
+simulated federation (``--train_federated``: 3 hospital nodes on one
+card, secure aggregation unless ``--unencrypted_aggregation``) are
+ported; ``--websockets`` (slice 6) and DP configs (slice 5) raise
 ``NotImplementedError``.
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 from os import path
+from warnings import warn
 
 from primia_tpu_torch import DEVICES
 from primia_tpu_torch.config import Arguments
@@ -25,9 +28,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=str, required=True,
                         help="Path to the configuration file (.ini).")
     parser.add_argument("--train_federated", action="store_true",
-                        help="Train with federated learning (not ported yet).")
+                        help="Train with federated learning: the worker shards under "
+                        "--data_dir, simulated on one device.")
     parser.add_argument("--unencrypted_aggregation", action="store_true",
-                        help="Turns off secure aggregation (federated only).")
+                        help="Turns off secure aggregation: plain FedAvg (federated "
+                        "only).")
     parser.add_argument("--data_dir", type=str, default="data/train",
                         help="Select a data folder.")
     parser.add_argument("--visdom", action="store_true",
@@ -37,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume_checkpoint", type=str, default=None,
                         help="Start training from older model checkpoint")
     parser.add_argument("--websockets", action="store_true",
-                        help="Train against remote grid nodes (federated only).")
+                        help="Train against remote grid nodes (federated only; not "
+                        "ported yet).")
     parser.add_argument("--verbose", action="store_true",
                         help="Verbose worker/metric output")
     parser.add_argument("--save_file", type=str,
@@ -58,6 +64,10 @@ def main(argv=None) -> float:
     args = Arguments.from_ini(cmd_args.config, mode="train", cmd_args=cmd_args, verbose=True)
     if args.websockets and not args.train_federated:
         raise RuntimeError("WebSockets can only be used when in federated mode.")
+    if args.train_federated and args.mixup and args.mixup_lambda == 0.5:
+        warn("Class weighting and a lambda value of 0.5 are incompatible, "
+             "setting lambda to 0.499", category=RuntimeWarning)
+        args.mixup_lambda = 0.499
     print(str(args))
 
     from primia_tpu_torch.train.loop import main as train_main

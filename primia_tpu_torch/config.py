@@ -18,6 +18,7 @@ inference time (reference: ``inference.py:82-93``).
 from __future__ import annotations
 
 import configparser
+import csv
 import dataclasses
 import json
 from dataclasses import dataclass
@@ -383,3 +384,27 @@ class _IniGetter:
         val = self._get(self.cp.get, section, option, fallback)
         return val.strip() if isinstance(val, str) else val
 
+
+def read_worker_config(path: str | Path) -> Dict[str, Dict[str, str]]:
+    """Parse a worker-topology CSV (rows: id / host / port; columns: workers).
+
+    Reference format (``configs/websetting/config.csv``)::
+
+        id,alice,bob,charlie,crypto_provider
+        host,127.0.0.1,...
+        port,8777,...
+
+    Returns ``{worker_id: {"id":..., "host":..., "port":...}}``.
+    """
+    rows = {}
+    with open(path, newline="") as f:
+        for row in csv.reader(f):
+            if not row:
+                continue
+            rows[row[0].strip()] = [c.strip() for c in row[1:]]
+    if not {"id", "host", "port"} <= set(rows):
+        raise ValueError(f"worker config {path} must have id/host/port rows")
+    out: Dict[str, Dict[str, str]] = {}
+    for i, wid in enumerate(rows["id"]):
+        out[wid] = {"id": wid, "host": rows["host"][i], "port": rows["port"][i]}
+    return out

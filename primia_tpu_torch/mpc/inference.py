@@ -44,12 +44,6 @@ from primia_tpu_torch.ops.numerics import div
 _MODEL, _DATA, _DEALER = 0, 1, 2
 
 
-def _stream(device, *path: int) -> torch.Generator:
-    """An independent generator on ``device`` for the stream ``path``."""
-    s = int(np.random.SeedSequence(list(path)).generate_state(1, np.uint64)[0]) >> 1
-    return torch.Generator(device=device).manual_seed(s)
-
-
 def folded_weights(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's weights as its owner shares them, by module name: conv
     ``weight``; batch norm folded to ``scale`` and ``offset``; the fc's
@@ -138,7 +132,7 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     std_t = torch.as_tensor(np.asarray(std, np.float32), device=device).reshape(1, -1, 1, 1)
     model.eval()
     weights = {k: v.to(device) for k, v in folded_weights(model).items()}
-    shared = encode_and_share(_stream(device, _MODEL), weights, frac)
+    shared = encode_and_share(S.stream(device, _MODEL), weights, frac)
     calls = itertools.count()
 
     @torch.inference_mode()
@@ -148,8 +142,8 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
         if use_clahe:
             x = clahe(x, clip_limit=1.0, tiles=8, channels_first=True)
         x = (x - mean_t) / std_t
-        xs = S.share(_stream(device, _DATA, call, idx), fixed.encode(x, frac))
-        E = MpcEngine(MpcContext(_stream(device, _DEALER, call, idx), frac, protocol))
+        xs = S.share(S.stream(device, _DATA, call, idx), fixed.encode(x, frac))
+        E = MpcEngine(MpcContext(S.stream(device, _DEALER, call, idx), frac, protocol))
         return reveal_and_decode(resnet_forward(E, shared, model, xs, swap), frac).float()
 
     def predict(images_u8) -> torch.Tensor:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 N_PARTIES = 2
@@ -30,6 +31,13 @@ class AShare(NamedTuple):
     @property
     def ndim(self) -> int:
         return self.data.dim() - 1
+
+
+def stream(device, *path: int) -> torch.Generator:
+    """An independent generator on ``device`` for the stream ``path`` (a
+    tuple of integers, as a JAX key is folded: seed, purpose, round, ...)."""
+    s = int(np.random.SeedSequence(list(path)).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=device).manual_seed(s)
 
 
 def rand_ring(gen: torch.Generator, shape) -> torch.Tensor:

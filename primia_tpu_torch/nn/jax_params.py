@@ -92,14 +92,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def _leaves(tree):
     """Leaves in ``jax.tree.leaves`` order: dict keys sorted, lists in order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+    for _, leaf in _paths(tree, ()):
+        yield leaf
 
 
 def param_leaves(module: nn.Module) -> List[Tuple[str, str]]:
@@ -171,3 +165,36 @@ def to_jax_tree(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
             state[name] = {"mean": _np(m.running_mean), "var": _np(m.running_var),
                            "count": _np(m.num_batches_tracked)}
     return _nest(params), _nest(state)
+
+
+def jax_leaf_paths(module: nn.Module) -> List[Tuple[tuple, str]]:
+    """``(path, tensor name)`` for every leaf of :func:`to_jax_tree`'s trees
+    joined as ``{"params": params, "state": state}``, in ``jax.tree.leaves``
+    order. The path holds the keys JAX's tree utilities give it (dict keys,
+    then list indices), the name is the leaf's key in
+    ``module.state_dict()``: ``(("params", "layer1", 0, "conv1", "w"),
+    "layer1.0.conv1.weight")``."""
+    params: Dict[str, Dict[str, str]] = {}
+    state: Dict[str, Dict[str, str]] = {}
+    for name, m in module.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, Conv):
+            params[name] = {"w": pre + "weight"}
+        elif isinstance(m, nn.Linear):
+            params[name] = {"w": pre + "weight", "b": pre + "bias"}
+        elif isinstance(m, Norm):
+            params[name] = {"gamma": pre + "weight", "beta": pre + "bias"}
+            state[name] = {k: pre + v for k, v in _STATE_LEAF.items()}
+    return list(_paths({"params": _nest(params), "state": _nest(state)}, ()))
+
+
+def _paths(tree, prefix: tuple):
+    """``(path, leaf)`` in ``jax.tree.leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
+    else:
+        yield prefix, tree

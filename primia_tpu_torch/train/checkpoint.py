@@ -132,7 +132,8 @@ def save_model(
     {params, state}, optim_state_dict}`` with the weights in the JAX
     layout. ``opt_state`` is the optimizer's ``state_to_jax()``
     (``train/optim.py``): ``AdamState``/``SGDState`` with the moments as
-    one flat vector in the JAX parameter order."""
+    one flat vector in the JAX parameter order; federated training saves
+    ``{worker: state}``, one per node, as the JAX package does."""
     params, state = to_jax_tree(model)
     save_tree(path, {
         "epoch": int(epoch),

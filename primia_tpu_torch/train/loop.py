@@ -12,8 +12,9 @@ Port of the local path of ``primia_tpu/train/loop.py`` (reference
   maximum) copied to ``<weights_dir>/final_<exp>.pt``, the others
   deleted, and the run appended to the registry CSV.
 
-Federated training (slice 4) and DP-SGD with its parameter EMA
-(slice 5) are not ported yet and raise.
+Federated training goes to ``parallel/federated.py:main_federated``, as
+in the JAX package. DP-SGD with its parameter EMA (slice 5) is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -97,8 +98,9 @@ def main(args: Arguments, verbose: bool = True, device="cuda",
     (100 * MCC). ``device`` is ``"cuda"`` (the default; raises without a
     card) or ``"cpu"``."""
     if args.train_federated:
-        raise NotImplementedError(
-            "federated training is not ported yet (ROADMAP queue 1, slice 4)")
+        from primia_tpu_torch.parallel.federated import main_federated
+
+        return main_federated(args, verbose=verbose, device=device, weights_dir=weights_dir)
     if args.differentially_private:
         raise NotImplementedError("DP-SGD is not ported yet (ROADMAP queue 1, slice 5)")
     device = resolve_device(device) if isinstance(device, str) else torch.device(device)

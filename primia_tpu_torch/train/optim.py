@@ -53,6 +53,15 @@ class _Optimizer:
             flat = flatten_jax(dict(zip(self.names, tensors)), self.leaves)
         return flat.float().cpu().numpy()
 
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Back to the state a new optimizer starts from (step 0, zero
+        moments), in place: the JAX package's ``optimizer.init(params)``,
+        which federated training calls after every aggregation."""
+        self.step = 0
+        for t in self._moments():
+            t.zero_()
+
     def _load(self, stored, into: Sequence[torch.Tensor]) -> None:
         """Copies a stored moment (flat vector or per-leaf tree) into ``into``."""
         like = dict(zip(self.names, into))
@@ -96,6 +105,9 @@ class Adam(_Optimizer):
         torch._foreach_div_(upd, denom)
         torch._foreach_sub_(self.params, upd)
 
+    def _moments(self) -> List[torch.Tensor]:
+        return self.mu + self.nu
+
     def state_to_jax(self) -> AdamState:
         return AdamState(np.int32(self.step), self._flat(self.mu), self._flat(self.nu))
 
@@ -123,6 +135,9 @@ class SGD(_Optimizer):
             torch._foreach_add_(self.buf, d)
             d = self.buf
         torch._foreach_sub_(self.params, torch._foreach_mul(d, lr))
+
+    def _moments(self) -> List[torch.Tensor]:
+        return self.buf or []
 
     def state_to_jax(self) -> SGDState:
         return SGDState(np.int32(self.step),

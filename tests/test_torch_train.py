@@ -461,10 +461,13 @@ def test_train_cli_defaults_to_cuda_and_ports_only_the_local_path(tmp_path, fixt
     argv = ["--config", str(ini), "--data_dir", str(fixture_dir / "train")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(argv)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        train.main(argv + ["--train_federated", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        train.main(argv + ["--train_federated", "--websockets", "--device", "cpu"])
     args = Arguments.from_ini(ini, cmd_args=argparse.Namespace(data_dir="d"))
     args.differentially_private = True
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        loop.main(args, device="cpu")
+    args.train_federated = True
     with pytest.raises(NotImplementedError, match="slice 5"):
         loop.main(args, device="cpu")
 
