@@ -164,23 +164,59 @@ Phases, each reported on its own line; any failure exits nonzero:
                   batch 200), of a secure and a plain aggregation of the whole
                   model and of a FedAvg round (3 steps and one aggregation),
                   busy ms and idle share from the profiler, peak memory.
-16. kernels       one JSON line with each kernel's error, times, bound and
+16. dp            slice 5's main path, DP-SGD: K1 against its plain version,
+                  bit for bit, at the DP step's shape (the affine warp's two
+                  passes over 2048 x 3 planes of 224 x 224: batch 512 times 4
+                  views); the train CLI on configs/torch/pneumonia-resnet-
+                  dp.ini (ResNet-18 with group norm at 224 px, batch 512,
+                  augment_multiplicity 4, SGD with momentum, EMA 0.99, sigma
+                  2.0; epochs 60 -> 1 and test_interval 2 -> 1) on 1,024
+                  synthetic DICOMs (2 steps) and 60 test ones, from the He
+                  init (no ImageNet file visible), counters set to 0 just
+                  before and read just after (K1 twice a step, nothing else);
+                  its epsilon line against the accountant; its EMA checkpoint
+                  (raw parameters beside it) through the evaluate CLI on the
+                  card; 6 microbatched steps at batch 512 after 2 warm-up
+                  steps (p50/p75, examples/s, views/s, the microbatch, peak
+                  memory; busy ms, idle share, device ms by category and aten
+                  ops from the profiler over one step); the ghost-norm step
+                  (K = 1) timed the same way, and again under
+                  PRIMIA_PALLAS_WGRAD=1 (K7 three times a step: layer3's
+                  stride-1 convs at 512 x 256 x 14 x 14), whose clipped sum at
+                  sigma = 0 is held to the default ghost step's (2e-2 of each
+                  leaf's max); at sigma = 0 in float32 with augmentation off,
+                  the ghost and microbatched clipped sums on the card (16
+                  examples) and the card's microbatched step against the
+                  CPU's (4 examples), each within 1e-4 of a leaf's max; the
+                  noise: one step at sigma = 2 minus one at sigma = 0, scaled
+                  by denom / (lr sigma C), has mean and std within 3 standard
+                  errors of 0 and 1 over the model's 11.2 M values; then the
+                  federated DP CLI (configs/torch/pneumonia-resnet-dp-
+                  federated.ini with --train_federated, epochs 60 -> 1 and
+                  test_interval 2 -> 1) on 3 nodes of 512 images (one step
+                  each, secure aggregation): K1 twice a node step and nothing
+                  else, the EMA checkpoint with kept optimizers; the
+                  federated step's p50 (3 node steps at batch 512) and a
+                  round's (a step and a secure aggregation).
+17. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
                   K8, the noise phase for K5; every path's counts beside
-                  them, K1 and CLAHE also on the federated path, and a kernel
-                  launched no time on any of its paths fails the run), the
-                  card's name and power limit, and as the last line
+                  them, K1 and CLAHE also on the federated path, K1 on the DP
+                  and federated DP CLIs, K7 on the switched ghost steps, and
+                  a kernel launched no time on any of its paths fails the
+                  run), the card's name and power limit, and as the last line
                   {"ok": true, "device": {...}}.
 
 Nothing here imports JAX or the JAX package. Work files go to
 ``build/chip_smoke/``, and the profile tables to ``--profile_out`` (default
 ``build/chip_smoke/profile.txt``; the train step's, the encrypted
 predict's, the default and switched steps of phase 14 and the federated
-step beside it, with ``.train``, ``.encrypt``,
-``.train_optin.{default,switched}`` or ``.federated`` before the suffix).
-Phases run in the order 1-5, 8-12, 6, 13, 7, 14, 15.
+step beside it, the DP steps', with ``.train``, ``.encrypt``,
+``.train_optin.{default,switched}``, ``.federated`` or
+``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
+Phases run in the order 1-5, 8-12, 6, 13, 7, 14, 15, 16.
 """
 
 from __future__ import annotations
@@ -217,7 +253,7 @@ KERNELS = {
               "also": ("federated",), "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
-                  "also": ("federated",), "kernel": ("tent_rows_kernel",),
+                  "also": ("federated", "dp", "dp_federated"), "kernel": ("tent_rows_kernel",),
                   "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
     # (PRIMIA_WARP_TWOPASS=0) or the affine ranges are not two-pass safe
@@ -230,6 +266,7 @@ KERNELS = {
     # function's time counts each kernel named here (K7's second, reducing
     # pass included)
     "conv3x3_wgrad": {"replaces": "primia_tpu/ops/pallas_wgrad.py:122", "path": "train_optin",
+                      "also": ("dp_ghost_optin",),
                       "kernel": ("conv3x3_wgrad_kernel", "conv3x3_wgrad_reduce_kernel"),
                       "source": "primia_tpu_torch/csrc/wgrad.cu"},
     # the switched batch norm, three launches a direction: K8's sums, and the
@@ -302,6 +339,20 @@ def cuda_ms(torch, fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def p50_ms(torch, np, fn, n):
+    """p50 of the host clock around ``n`` synchronised calls of ``fn``,
+    after one warm-up call, in ms."""
+    fn()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ms, 50))
 
 
 def trace(torch, fn, iters):
@@ -787,8 +838,11 @@ def phase_wgrad(torch, seed):
         return t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
     records, worst = [], 0.0
+    # the train step's two shapes, the DP ghost step's layer3 at batch 512,
+    # and two ragged ones
     for B, ci, co, H, W in ((TRAIN_BATCH, 128, 128, 28, 28), (TRAIN_BATCH, 256, 256, 14, 14),
-                            (3, 64, 512, 9, 11), (2, 72, 136, 13, 28)):
+                            (DP_BATCH, 256, 256, 14, 14), (3, 64, 512, 9, 11),
+                            (2, 72, 136, 13, 28)):
         x, gy = operand(B, ci, H, W), operand(B, co, H, W)
         got = cw.conv3x3_wgrad(x, gy)
         torch.cuda.synchronize()
@@ -807,6 +861,8 @@ def phase_wgrad(torch, seed):
                          bound(2 * (x.numel() + gy.numel()) + 4 * co * ci * 9, flops,
                                PEAK_BF16_TENSOR_OPS_PER_S))
         plan = cw.card_plan(dev, B, ci, co, H, W)
+        check(plan.blocks <= plan.wave, f"conv3x3_wgrad's plan at {(B, ci, co, H, W)} is "
+              f"{plan.blocks} blocks, past one wave of {plan.wave}")
         _say_times("conv3x3_wgrad", r, shape=f"B{B}:ci{ci}:co{co}:{H}x{W}", max_abs_err=err,
                    max_abs_dw=scale, library_max_abs_diff=lib_err, gflop=flops / 1e9,
                    tflop_per_s=f"{flops / (r['ms'] * 1e-3) / 1e12:.2f}",
@@ -1399,34 +1455,42 @@ def phase_serve(torch, seed, work, profile_out):
     return launches
 
 
-def write_dataset(np, rng, root):
-    """The synthetic 3-class set: ``root/train/<class>/`` and
-    ``root/test/<class>/`` DICOMs, each class a little brighter."""
+def write_classes(np, rng, root, counts):
+    """``root/<class>/`` synthetic DICOMs, ``counts`` a class, each class a
+    little brighter."""
     from primia_tpu_torch.data import write_dicom
 
+    for ci, (cls, n) in enumerate(zip(CLASSES, counts)):
+        d = root / cls
+        d.mkdir(parents=True)
+        imgs = np.clip(synthetic_xrays(np, rng, n).astype(np.int16) + 12 * ci, 0, 255)
+        for i, a in enumerate(imgs.astype(np.uint8)):
+            write_dicom(d / f"xray_{i:04d}.dcm", a)
+
+
+def write_dataset(np, rng, root):
+    """The synthetic 3-class set: ``root/train/<class>/`` and
+    ``root/test/<class>/`` DICOMs."""
     for split, n in (("train", TRAIN_PER_CLASS), ("test", TEST_PER_CLASS)):
-        for ci, cls in enumerate(CLASSES):
-            d = root / split / cls
-            d.mkdir(parents=True)
-            imgs = np.clip(synthetic_xrays(np, rng, n).astype(np.int16) + 12 * ci, 0, 255)
-            for i, a in enumerate(imgs.astype(np.uint8)):
-                write_dicom(d / f"xray_{i:03d}.dcm", a)
+        write_classes(np, rng, root / split, (n,) * len(CLASSES))
 
 
-def time_steps(torch, np, run, phase, profile_out, tag):
-    """``TIMED_STEPS`` train steps ``run(i)`` after 3 warm-up steps: p50
-    and p75 of the host clock around each synchronised step, img/s, peak
-    memory, and from the profiler over 3 steps the device ms a step by
-    category, the idle share and the CPU-side ``aten::`` ops a step (every
-    call, nested ones included; the table goes beside ``profile_out`` with
-    ``tag`` before the suffix). Returns (p50 ms, device ms by category,
-    aten ops a step, idle share)."""
-    for i in range(3):
+def time_steps(torch, np, run, phase, profile_out, tag, batch=TRAIN_BATCH, steps=TIMED_STEPS,
+               warmup=3, n_prof=3, **extra):
+    """``steps`` train steps ``run(i)`` at ``batch`` after ``warmup`` steps:
+    p50 and p75 of the host clock around each synchronised step, img/s,
+    peak memory, and from the profiler over ``n_prof`` steps the device ms
+    a step by category, the idle share and the CPU-side ``aten::`` ops a
+    step (every call, nested ones included; the table goes beside
+    ``profile_out`` with ``tag`` before the suffix); ``extra`` joins the
+    printed line. Returns (p50 ms, device ms by category, aten ops a step,
+    idle share)."""
+    for i in range(warmup):
         run(i)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, step_losses = [], []
-    for i in range(TIMED_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step_losses.append(run(i))
@@ -1435,7 +1499,6 @@ def time_steps(torch, np, run, phase, profile_out, tag):
     check(all(bool(torch.isfinite(l)) for l in step_losses), f"{phase}: non-finite train loss")
     q = np.percentile(step_ms, [50, 75])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_prof = 3
     avgs = profile(torch, lambda: [run(i) for i in range(n_prof)], 1)
     path = profile_out.with_name(profile_out.stem + tag + profile_out.suffix)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -1444,11 +1507,11 @@ def time_steps(torch, np, run, phase, profile_out, tag):
     aten_ops = sum(e.count for e in avgs if e.key.startswith("aten::")) / n_prof
     busy = sum(cats.values())
     idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
-    say(phase, batch=TRAIN_BATCH, steps_timed=len(step_ms), step_ms_p50=f"{q[0]:.4f}",
-        step_ms_p75=f"{q[1]:.4f}", img_per_s_p50=f"{TRAIN_BATCH / (q[0] * 1e-3):.2f}",
+    say(phase, batch=batch, steps_timed=len(step_ms), step_ms_p50=f"{q[0]:.4f}",
+        step_ms_p75=f"{q[1]:.4f}", img_per_s_p50=f"{batch / (q[0] * 1e-3):.2f}",
         device_busy_ms_per_step=f"{busy:.4f}", idle_share=idle,
         aten_ops_per_step=f"{aten_ops:.1f}", peak_memory_gb=f"{peak_gb:.3f}",
-        compute_dtype="bfloat16")
+        compute_dtype="bfloat16", **extra)
     say(phase, device_ms_per_step=json.dumps({k: round(v, 6) for k, v in cats.items()}))
     return q[0], cats, aten_ops, idle
 
@@ -1773,20 +1836,13 @@ FED_PER_CLASS = ((134, 133, 133), (100, 100, 100), (67, 67, 66))
 FED_TIMED_STEPS, FED_TIMED_AGGREGATIONS, FED_TIMED_ROUNDS = 12, 8, 4
 
 
-def write_federated_dataset(np, rng, root):
-    """``root/worker1..3/<class>/`` (FED_PER_CLASS) and
-    ``root/validation/<class>/`` DICOMs, each class a little brighter: the
-    server-simulation layout of ``data/distribute.py``."""
-    from primia_tpu_torch.data import write_dicom
-
-    shards = [(f"worker{w + 1}", n) for w, n in enumerate(FED_PER_CLASS)]
+def write_federated_dataset(np, rng, root, per_class=FED_PER_CLASS):
+    """``root/worker1..N/<class>/`` (``per_class``, a node's counts a
+    class) and ``root/validation/<class>/`` DICOMs: the server-simulation
+    layout of ``data/distribute.py``."""
+    shards = [(f"worker{w + 1}", n) for w, n in enumerate(per_class)]
     for folder, counts in shards + [("validation", (TEST_PER_CLASS,) * len(CLASSES))]:
-        for ci, (cls, n) in enumerate(zip(CLASSES, counts)):
-            d = root / folder / cls
-            d.mkdir(parents=True)
-            imgs = np.clip(synthetic_xrays(np, rng, n).astype(np.int16) + 12 * ci, 0, 255)
-            for i, a in enumerate(imgs.astype(np.uint8)):
-                write_dicom(d / f"xray_{i:03d}.dcm", a)
+        write_classes(np, rng, root / folder, counts)
 
 
 def phase_federated(torch, seed, work, profile_out):
@@ -1970,21 +2026,11 @@ def phase_federated(torch, seed, work, profile_out):
         bound=n_nodes * 2.0 ** -(frac + 1))
 
     # the aggregations and the round
-    def timed(fn, n):
-        fn()
-        ms = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return float(np.percentile(ms, 50))
-
     rounds = iter(range(2, 10 ** 6))
     secure = lambda: nodes.aggregate(weights, (seed, 777, next(rounds)))  # noqa: E731
-    secure_ms = timed(secure, FED_TIMED_AGGREGATIONS)
-    plain_ms = timed(lambda: nodes.aggregate(weights, None), FED_TIMED_AGGREGATIONS)
+    secure_ms = p50_ms(torch, np, secure, FED_TIMED_AGGREGATIONS)
+    plain_ms = p50_ms(torch, np, lambda: nodes.aggregate(weights, None),
+                      FED_TIMED_AGGREGATIONS)
     agg_avgs = profile(torch, lambda: [secure() for _ in range(2)], 1)
     agg_busy = sum(device_ms_by_category(agg_avgs, 2).values())
     agg_ops = sum(e.count for e in agg_avgs if e.key.startswith("aten::")) / 2
@@ -1995,7 +2041,7 @@ def phase_federated(torch, seed, work, profile_out):
         secure()
         nodes.reset_optimizers()
 
-    round_ms = timed(fed_round, FED_TIMED_ROUNDS)
+    round_ms = p50_ms(torch, np, fed_round, FED_TIMED_ROUNDS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     q = np.percentile(step_ms, [50, 75])
     busy = sum(cats.values())
@@ -2012,6 +2058,381 @@ def phase_federated(torch, seed, work, profile_out):
         peak_memory_gb=f"{peak_gb:.3f}", cli_seconds=f"{cli_s:.4f}")
     say("federated", device_ms_per_step=json.dumps({k: round(v, 6) for k, v in cats.items()}))
     return launches
+
+
+DP_CONFIG = ROOT / "configs" / "torch" / "pneumonia-resnet-dp.ini"
+DP_FED_CONFIG = ROOT / "configs" / "torch" / "pneumonia-resnet-dp-federated.ini"
+DP_BATCH = 512
+DP_TRAIN_PER_CLASS = (342, 341, 341)  # 1,024 images: 2 steps at batch 512
+DP_FED_PER_CLASS = (171, 171, 170)  # 512 images a node: one step each
+DP_TIMED_STEPS, DP_WARMUP = 6, 2
+DP_FED_TIMED_STEPS, DP_FED_TIMED_ROUNDS = 2, 2
+K7_PER_GHOST_STEP = 3  # layer3's three stride-1 256 -> 256 convs (T = 196, the gram form)
+
+
+def run_cli(torch, cli, argv, cwd, log):
+    """``cli.main(argv)`` in-process from ``cwd`` with its output to
+    ``log``, the launch counters set to 0 just before and read just after.
+    Returns (result, output, seconds, launches)."""
+    out = io.StringIO()
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            result = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        os.chdir(old)
+    log.write_text(out.getvalue())
+    return result, out.getvalue(), secs, launches
+
+
+def eps_line(text):
+    lines = [line for line in text.splitlines() if line.startswith("(eps = ")]
+    check(len(lines) == 1, f"expected one epsilon line, got {lines}")
+    return lines[0]
+
+
+def leaf_gap(torch, got, want, rel):
+    """The largest |got - want| over the leaves relative to each leaf's
+    max |want|, and its leaf; fails past ``rel``."""
+    worst, where = 0.0, None
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        gap = float((got[n] - w).abs().max()) / scale if scale > 0 else float(got[n].abs().max())
+        if gap >= worst:
+            worst, where = gap, n
+    return worst, where, worst <= rel
+
+
+def k1_at_dp_shape(torch, seed, args):
+    """K1 against its plain version, bit for bit, at the DP step's shape: the
+    affine warp's two passes over the K x B stacked views (2048 x 3 planes of
+    224 x 224 from the DP INI's own affine draws), with times, bound and
+    ``grid_sample`` as library_ms."""
+    import torch.nn.functional as F
+
+    from primia_tpu_torch.ops import augment as A
+    from primia_tpu_torch.ops import cuda_tent as ct
+    from primia_tpu_torch.ops import image as I
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    B, C, H, W = DP_BATCH * args.augment_multiplicity, 3, RES, RES
+    cfg = A.AugmentConfig.from_args(args)
+    check(I.twopass_safe(cfg.rotation, cfg.shear, cfg.scale), "the DP INI's affine ranges "
+          "are not two-pass safe: K1 would not run")
+    planes = torch.rand((B * C, H, W), generator=g, device=dev)
+    q, p = I.twopass_coords(A._affine_mats(g, cfg, B), H, W)
+    rr, cc = I.pixel_grid(H, W, dev)
+    px = B * C * H * W
+    for case, coords, axis in (("affine_rows", q, 2), ("affine_cols", p, 1)):
+        got = ct.tent_rows(planes, coords, axis=axis)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ct.tent_rows_plain(planes, coords, axis=axis)),
+              f"tent_rows differs from plain at the DP shape, {case}")
+        ys, xs = (rr.expand(B, H, W), coords) if axis == 2 else (coords, cc.expand(B, H, W))
+        grid = grid_for(torch, ys, xs, H, W)
+        img = planes.reshape(B, C, H, W)
+        r = timed_record(torch, "tent_rows", lambda: ct.tent_rows(planes, coords, axis=axis),
+                         lambda: ct.tent_rows_plain(planes, coords, axis=axis),
+                         lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                               align_corners=True),
+                         bound(4 * (2 * px + B * H * W), 6 * px), iters=10, plain_iters=2)
+        kern_events = sum(e.count for e in profile(
+            torch, lambda: ct.tent_rows(planes, coords, axis=axis), 4)
+            if "tent_rows_kernel" in e.key) / 4
+        _say_times("dp", r, kernel="tent_rows", shape=f"{B}x{C}x{H}x{W}", case=case,
+                   max_abs_err=0.0, kernel_events_per_call=kern_events)
+        del got, grid
+
+
+def phase_dp(torch, seed, work, profile_out):
+    """Phase 16: slice 5's main path, DP-SGD on ResNet-18 with group norm at
+    224 px (configs/torch/pneumonia-resnet-dp.ini: batch 512, augmentation
+    multiplicity 4, SGD with momentum, EMA 0.99, sigma 2.0; only ``epochs``
+    (60 -> 1) and ``test_interval`` (2 -> 1) cut), from the He init with the
+    zero fc (no ImageNet file visible). Returns the launch counts of the DP
+    CLI, the switched ghost steps and the federated DP CLI."""
+    import numpy as np
+
+    from primia_tpu_torch.cli import evaluate as eval_cli
+    from primia_tpu_torch.cli import train as train_cli
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.data import (BatchLoader, ImageFolderDataset, calc_mean_std,
+                                       to_device_resident)
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.parallel.federated import FederatedNodes, setup_federated
+    from primia_tpu_torch.train import checkpoint as ckpt
+    from primia_tpu_torch.train import dp
+    from primia_tpu_torch.train.optim import make_optimizer
+
+    os.environ.pop("PRIMIA_PRETRAINED", None)
+    root = work / "dp"
+    rng = np.random.default_rng(seed + 3)
+    write_classes(np, rng, root / "train", DP_TRAIN_PER_CLASS)
+    write_classes(np, rng, root / "test", (TEST_PER_CLASS,) * len(CLASSES))
+    check(not (root / "model_weights" / "resnet-18-imagenet.pt").exists(),
+          "an ImageNet file is visible to the DP run")
+    text = DP_CONFIG.read_text()
+    check("epochs = 60" in text and "test_interval = 2" in text,
+          f"unexpected DP config: {DP_CONFIG}")
+    ini = work / "dp.ini"
+    ini.write_text(text.replace("epochs = 60", "epochs = 1").replace("test_interval = 2",
+                                                                     "test_interval = 1"))
+    args = Arguments.from_ini(ini)
+    K = args.augment_multiplicity
+    check(args.batch_size == DP_BATCH and K == 4 and args.normalization == "group"
+          and args.optimizer == "SGD" and args.momentum and args.weight_decay == 0.0
+          and args.parameter_ema == 0.99 and args.noise_multiplier == 2.0
+          and args.differentially_private and not args.clahe,
+          f"unexpected DP config: {DP_CONFIG}")
+    n_train = sum(DP_TRAIN_PER_CLASS)
+    steps = -(-n_train // DP_BATCH)
+    say("dp", config=DP_CONFIG.relative_to(ROOT), epochs=1, test_interval=1,
+        train_images=n_train, test_images=TEST_PER_CLASS * len(CLASSES), batch=DP_BATCH,
+        augment_multiplicity=K, steps=steps, microbatch=int(os.environ.get(
+            "PRIMIA_DP_MICROBATCH", 8)))
+    k1_at_dp_shape(torch, seed, args)
+
+    # the main path: the DP train CLI, in-process, on cuda
+    _, out, cli_s, launches = run_cli(torch, train_cli, [
+        "--config", str(ini), "--data_dir", str(root / "train"), "--device", "cuda"],
+        root, work / "dp_cli.log")
+    want = idle_launches(tent_rows=2 * steps)
+    check(launches == want, f"DP CLI launches {launches}, expected {want}")
+    finals = sorted((root / "model_weights").glob("final_*.pt"))
+    check(len(finals) == 1, f"DP CLI wrote {len(finals)} final checkpoints")
+    state = ckpt.load_model(finals[0])
+    check(state["epoch"] == 1 and int(state["optim_state_dict"].step) == steps
+          and "raw_params" in state and state["args"].differentially_private,
+          "the DP checkpoint lacks its epoch, optimizer step or raw parameters")
+    eps, alpha = dp.rdp_epsilon(noise_multiplier=2.0, sample_rate=DP_BATCH / n_train,
+                                steps=steps, delta=args.target_delta)
+    line = eps_line(out)
+    check(line == f"(eps = {eps:.2f}, delta = {args.target_delta}) at alpha = {alpha}",
+          f"epsilon line {line!r}")
+    m, _, eval_s, eval_launches = run_cli(torch, eval_cli, [
+        "--model_weights", str(finals[0]), "--data_dir", str(root / "test"), "--device", "cuda"],
+        root, work / "dp_evaluate.log")
+    check(int(np.asarray(m["conf_matrix"]).sum()) == TEST_PER_CLASS * len(CLASSES)
+          and eval_launches == idle_launches(), f"evaluate CLI on the EMA checkpoint: {m}")
+    say("dp", cli_seconds=f"{cli_s:.4f}", launches=json.dumps(launches),
+        tent_rows_per_step=launches["tent_rows"] / steps, epsilon_line=json.dumps(line),
+        checkpoint="ema_with_raw_params", evaluate_cli_seconds=f"{eval_s:.4f}",
+        evaluate_mcc=m["matthews_coeff"])
+
+    # timed steps on a model and data set up as the loop does
+    dev = torch.device("cuda")
+    ds = ImageFolderDataset(root / "train", channels=3)
+    imgs, labels = ds.materialize(RES)
+    mean, std = calc_mean_std(imgs)
+    loader = BatchLoader(to_device_resident(imgs, dev), labels, DP_BATCH, seed=seed,
+                         pad_final=False)
+    batches = list(loader)
+
+    def fresh(a, fc_std=0.0):
+        torch.manual_seed(seed)
+        model = create_model(a, num_classes=3, device="cpu").to(dev)
+        if fc_std:  # every layer gets a gradient from the first step
+            torch.nn.init.normal_(model.fc.weight, std=fc_std)
+        return model
+
+    def stepper(a, model, opt=None):
+        step = dp.select_train_step(model, opt or make_optimizer(a, model), a, mean, std,
+                                    None, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return lambda i: step(gen, batches[i % len(batches)].images,
+                              batches[i % len(batches)].labels, batches[i % len(batches)].mask,
+                              a.lr)
+
+    mb = int(os.environ.get("PRIMIA_DP_MICROBATCH", 8))
+    p50 = time_steps(torch, np, stepper(args, fresh(args)), "dp.microbatched", profile_out,
+                     ".dp_microbatched", batch=DP_BATCH, steps=DP_TIMED_STEPS,
+                     warmup=DP_WARMUP, n_prof=1, augment_multiplicity=K, microbatch=mb)[0]
+    say("dp.microbatched", examples_per_s_p50=f"{DP_BATCH / (p50 * 1e-3):.2f}",
+        views_per_s_p50=f"{K * DP_BATCH / (p50 * 1e-3):.2f}")
+    # the host's share: the same step in chunks of 32 examples
+    old = os.environ.get("PRIMIA_DP_MICROBATCH")
+    os.environ["PRIMIA_DP_MICROBATCH"] = "32"
+    try:
+        run = stepper(args, fresh(args))
+        mb32_ms = p50_ms(torch, np, lambda: run(0), 2)
+    finally:
+        os.environ.pop("PRIMIA_DP_MICROBATCH")
+        if old is not None:
+            os.environ["PRIMIA_DP_MICROBATCH"] = old
+    say("dp.microbatched", microbatch=32, steps_timed=2, step_ms_p50=f"{mb32_ms:.4f}",
+        examples_per_s_p50=f"{DP_BATCH / (mb32_ms * 1e-3):.2f}")
+    ghost = Arguments.from_ini(ini)
+    ghost.augment_multiplicity = 1
+    time_steps(torch, np, stepper(ghost, fresh(ghost)), "dp.ghost", profile_out, ".dp_ghost",
+               batch=DP_BATCH, steps=DP_TIMED_STEPS, warmup=DP_WARMUP, n_prof=1,
+               augment_multiplicity=1)
+    with switches("PRIMIA_PALLAS_WGRAD"):
+        run = stepper(ghost, fresh(ghost))
+        run(0)
+        reset_launches()
+        for i in range(2):
+            run(i)
+        torch.cuda.synchronize()
+        ghost_launches = read_launches()
+        want = idle_launches(tent_rows=2 * 2, conv3x3_wgrad=2 * K7_PER_GHOST_STEP)
+        check(ghost_launches == want,
+              f"switched ghost steps: launches {ghost_launches}, expected {want}")
+        time_steps(torch, np, run, "dp.ghost_optin", profile_out, ".dp_ghost_optin",
+                   batch=DP_BATCH, steps=DP_TIMED_STEPS, warmup=1, n_prof=1,
+                   conv3x3_wgrad_per_step=K7_PER_GHOST_STEP)
+
+    # the switched ghost step's clipped sum at sigma = 0 against the default's
+    quiet = Arguments.from_ini(ini)
+    quiet.augment_multiplicity, quiet.noise_multiplier = 1, 0.0
+    grads = {}
+    for label, names in (("default", ()), ("switched", ("PRIMIA_PALLAS_WGRAD",))):
+        with switches(*names):
+            model = fresh(quiet, fc_std=0.05)
+            rec = _GradRecorder(model)
+            stepper(quiet, model, rec)(0)
+            grads[label] = rec.grads
+    gap, leaf, ok = leaf_gap(torch, grads["switched"], grads["default"], 2e-2)
+    check(ok, f"switched ghost step's clipped sum vs the default's: {gap} of {leaf}'s max")
+    say("dp", ghost_optin_vs_default="ok", max_gap_of_leaf_max=gap, leaf=leaf, limit=2e-2)
+
+    # sigma = 0, float32, augmentation off: ghost against microbatched on the
+    # card on the data set's images, and the card's microbatched step against
+    # the CPU's on uniform noise images: the synthetic X-rays' saturated flat
+    # regions tie in the stem's max pool, and the card's and the CPU's
+    # kernels break ties apart, which moves the stem's gradient
+    f32 = Arguments.from_ini(ini)
+    f32.compute_dtype, f32.noise_multiplier, f32.augment_multiplicity = "float32", 0.0, 1
+    f32.rotation = f32.translate = f32.scale = f32.shear = 0.0
+    f32.albu_prob = 0.0
+    torch.manual_seed(seed)
+    sd = create_model(f32, num_classes=3, device="cpu").state_dict()
+    sd["fc.weight"].normal_(0, 0.05)
+
+    def clipped_sum(where, make_step, images, microbatch=None):
+        model = create_model(f32, num_classes=3, device=where)
+        model.load_state_dict(sd)
+        rec = _GradRecorder(model)
+        kw = {} if microbatch is None else {"microbatch": microbatch}
+        step = make_step(model, rec, f32, mean, std, None, where, **kw)
+        n = images.shape[0]
+        b = batches[0]
+        loss = float(step(torch.Generator(device=where).manual_seed(0),
+                          torch.as_tensor(images).to(where), b.labels[:n], b.mask[:n], 1.0))
+        return loss, rec.grads
+
+    _, g_ghost = clipped_sum("cuda", dp.build_ghost_dp_train_step, batches[0].images[:16])
+    _, g_micro = clipped_sum("cuda", dp.build_dp_train_step, batches[0].images[:16])
+    gap, leaf, ok = leaf_gap(torch, g_ghost, g_micro, 1e-4)
+    check(ok, f"ghost vs microbatched clipped sum on the card: {gap} of {leaf}'s max")
+    say("dp", ghost_vs_microbatched="ok", examples=16, max_gap_of_leaf_max=gap, leaf=leaf,
+        limit=1e-4)
+    noise_imgs = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, 256, (4, RES, RES, 3), dtype=np.uint8))
+    l_card, g_card = clipped_sum("cuda", dp.build_dp_train_step, noise_imgs, microbatch=4)
+    l_cpu, g_cpu = clipped_sum("cpu", dp.build_dp_train_step, noise_imgs, microbatch=4)
+    gap, leaf, ok = leaf_gap(torch, g_card, g_cpu, 1e-4)
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    check(ok and rel <= 1e-4, f"card vs CPU microbatched step: clipped sum {gap} of {leaf}'s "
+          f"max, loss {l_card} vs {l_cpu}")
+    say("dp", cpu_check="ok", examples=4, images="uniform noise", max_gap_of_leaf_max=gap,
+        leaf=leaf, loss_rel_diff=rel, limit=1e-4)
+
+    # the noise: one step from a fresh optimizer at sigma = 2 against sigma = 0
+    after = {}
+    for sigma in (0.0, args.noise_multiplier):
+        a = Arguments.from_ini(ini)
+        a.augment_multiplicity, a.noise_multiplier = 1, sigma
+        model = fresh(a, fc_std=0.05)
+        stepper(a, model)(0)
+        after[sigma] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).double()
+    denom = float(batches[0].mask.sum())
+    z = (after[0.0] - after[args.noise_multiplier]) * denom / (
+        args.lr * args.noise_multiplier * args.max_grad_norm)
+    n = z.numel()
+    zm, zs = float(z.mean()), float(z.std())
+    check(abs(zm) <= 3 / n ** 0.5 and abs(zs - 1.0) <= 3 / (2 * n) ** 0.5,
+          f"DP noise: mean {zm}, std {zs} over {n} values")
+    say("dp", noise="ok", values=n, mean=zm, std=zs, mean_limit=3 / n ** 0.5,
+        std_limit=3 / (2 * n) ** 0.5)
+
+    # the federated DP CLI: 3 nodes of 512 images, one step each, secure
+    # aggregation, workers worker1..3 (no websetting CSV in the cwd)
+    froot = work / "dp_federated"
+    write_federated_dataset(np, rng, froot, (DP_FED_PER_CLASS,) * 3)
+    text = DP_FED_CONFIG.read_text()
+    check("epochs = 60" in text and "test_interval = 2" in text,
+          f"unexpected federated DP config: {DP_FED_CONFIG}")
+    fini = work / "dp_federated.ini"
+    fini.write_text(text.replace("epochs = 60", "epochs = 1").replace("test_interval = 2",
+                                                                      "test_interval = 1"))
+    fargs = Arguments.from_ini(fini, cmd_args=argparse.Namespace(data_dir=str(froot),
+                                                                 train_federated=True))
+    check(fargs.batch_size == DP_BATCH and fargs.sync_every_n_batch == 1
+          and fargs.keep_optim_dict and fargs.augment_multiplicity == 4 and fargs.epochs == 1
+          and not fargs.unencrypted_aggregation and fargs.noise_multiplier == 3.0,
+          f"unexpected federated DP config: {DP_FED_CONFIG}")
+    node_steps = 3
+    _, out, fed_cli_s, fed_launches = run_cli(torch, train_cli, [
+        "--config", str(fini), "--data_dir", str(froot), "--train_federated",
+        "--device", "cuda"], froot, work / "dp_federated_cli.log")
+    want = idle_launches(tent_rows=2 * node_steps)
+    check(fed_launches == want, f"federated DP CLI launches {fed_launches}, expected {want}")
+    finals = sorted((froot / "model_weights").glob("final_federated_*.pt"))
+    check(len(finals) == 1, f"federated DP CLI wrote {len(finals)} final checkpoints")
+    state = ckpt.load_model(finals[0])
+    osd = state["optim_state_dict"]
+    check(state["epoch"] == 1 and "raw_params" in state
+          and sorted(osd) == ["worker1", "worker2", "worker3"]
+          and all(int(osd[w].step) == 1 for w in osd),
+          "the federated DP checkpoint lacks its epoch, raw parameters or kept optimizers")
+    line = eps_line(out)
+    check("[worst node: " in line, f"federated epsilon line {line!r}")
+    say("dp_federated", config=DP_FED_CONFIG.relative_to(ROOT), epochs=1, nodes=3,
+        batch_per_node=DP_BATCH, cli_seconds=f"{fed_cli_s:.4f}",
+        launches=json.dumps(fed_launches),
+        tent_rows_per_node_step=fed_launches["tent_rows"] / node_steps,
+        epsilon_line=json.dumps(line), checkpoint="ema_with_raw_params")
+
+    # the federated step and round, on the nodes as the CLI builds them
+    cwd = os.getcwd()
+    os.chdir(froot)
+    try:
+        names, node_imgs, node_labels, _, _, fmean, fstd, _ = setup_federated(
+            fargs, verbose=False, device=dev)
+    finally:
+        os.chdir(cwd)
+    torch.manual_seed(seed)
+    nodes = FederatedNodes(fargs, create_model(fargs, num_classes=3, device="cpu").to(dev),
+                           len(names), fmean, fstd, None, dev)
+    node_batches = [next(iter(BatchLoader(to_device_resident(x, dev), y, DP_BATCH,
+                                          seed=seed + i)))
+                    for i, (x, y) in enumerate(zip(node_imgs, node_labels))]
+    weights = np.full(len(names), 1.0 / len(names))
+    rounds = iter(range(1, 10 ** 6))
+
+    def fed_step():
+        nodes.step(node_batches, fargs.lr)
+
+    def fed_round():  # sync_every_n_batch = 1: a step and a secure aggregation
+        fed_step()
+        nodes.aggregate(weights, (seed, 777, next(rounds)))
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = p50_ms(torch, np, fed_step, DP_FED_TIMED_STEPS)
+    round_ms = p50_ms(torch, np, fed_round, DP_FED_TIMED_ROUNDS)
+    say("dp_federated", fed_step_ms_p50=f"{step_ms:.4f}", steps_timed=DP_FED_TIMED_STEPS,
+        round_s_p50=f"{round_ms * 1e-3:.4f}", rounds_timed=DP_FED_TIMED_ROUNDS,
+        round_steps=fargs.sync_every_n_batch,
+        examples_per_s_p50=f"{3 * DP_BATCH / (step_ms * 1e-3):.2f}",
+        peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return {"dp": launches, "dp_ghost_optin": ghost_launches, "dp_federated": fed_launches}
 
 
 def _leaf(tree, path):
@@ -2074,6 +2495,7 @@ def main(argv=None) -> int:
                                                                        profile_out)
         by_path["train_optin"] = phase_train_optin(torch, opts.seed, work, profile_out, ctx)
         by_path["federated"] = phase_federated(torch, opts.seed, work, profile_out)
+        by_path.update(phase_dp(torch, opts.seed, work, profile_out))
         for name, meta in KERNELS.items():
             for path in (meta["path"], *meta.get("also", ())):
                 check(by_path[path][name] > 0,

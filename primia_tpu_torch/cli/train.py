@@ -9,7 +9,8 @@ reference ``train.py:555-631``), plus ``--device``::
 Runs on CUDA unless ``--device cpu``. Single-site training and the
 simulated federation (``--train_federated``: 3 hospital nodes on one
 card, secure aggregation unless ``--unencrypted_aggregation``) are
-ported; ``--websockets`` (slice 6) and DP configs (slice 5) raise
+ported, each with DP-SGD under ``differentially_private = yes``
+(``train/dp.py``); ``--websockets`` (slice 6) raises
 ``NotImplementedError``.
 """
 

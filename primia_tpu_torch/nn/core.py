@@ -62,12 +62,10 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return x * _channel(f["scale"]).to(x.dtype) + _channel(f["offset"]).to(x.dtype)
 
 
-def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm with ``torch.nn.GroupNorm`` semantics: per-example
+def group_normalize(x: torch.Tensor, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm's normalisation, without the affine: per-example
     statistics over (C/G, H, W) of each of ``min(groups, C)`` groups of
-    neighbouring channels, statistics in float32, then the channelwise
-    affine."""
+    neighbouring channels, in float32; ``x_hat`` in ``x``'s dtype."""
     B, C = x.shape[:2]
     G = min(groups, C)
     if C % G:
@@ -75,8 +73,16 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     xf = x.float().reshape(B, G, -1)
     mean = xf.mean(-1, keepdim=True)
     var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp(min=0.0)
-    xhat = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape).to(x.dtype)
-    return xhat * _channel(gamma) + _channel(beta)
+    return ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm with ``torch.nn.GroupNorm`` semantics: :func:`group_normalize`,
+    then the channelwise affine ``x_hat * gamma + beta``. The two halves
+    are apart because the ghost-norm DP step (``train/dp.py``) records the
+    affine's input ``x_hat``, as the JAX package's ``E.affine`` does."""
+    return group_normalize(x, groups, eps) * _channel(gamma) + _channel(beta)
 
 
 def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:

@@ -22,8 +22,14 @@ leaf on the card (which bounds the peak), aggregates them in share space
 there and copies the result into every node's parameters and buffers in
 place.
 
-``--websockets`` (live grid nodes) needs ``serve/*`` and raises; so does
-``differentially_private`` (DP-SGD), as the local loop does.
+Under ``differentially_private`` every node's step is DP-SGD
+(``train/dp.py:select_train_step``; each node's own generator draws its
+own noise), each node's epsilon is printed after each epoch, and with
+``0 < parameter_ema < 1`` the aggregated model's moving average across
+aggregation rounds is evaluated and saved (its raw parameters beside it,
+under ``raw_params``), as the JAX package's loop does.
+
+``--websockets`` (live grid nodes) needs ``serve/*`` and raises.
 """
 
 from __future__ import annotations
@@ -46,14 +52,15 @@ from primia_tpu_torch.mpc import shares as S
 from primia_tpu_torch.mpc.aggregation import (node_weights, plain_fedavg_leaf,
                                               secure_average_stats, secure_fedavg_leaf)
 from primia_tpu_torch.nn import create_model
-from primia_tpu_torch.nn.jax_params import from_jax_tree, jax_leaf_paths
+from primia_tpu_torch.nn.jax_params import from_jax_tree, jax_leaf_paths, to_jax_tree
 from primia_tpu_torch.train import checkpoint as ckpt
 from primia_tpu_torch.train.loop import run_eval
 from primia_tpu_torch.train.losses import calc_class_weights
 from primia_tpu_torch.train.lr import make_scheduler
+from primia_tpu_torch.train.dp import parameter_ema, rdp_epsilon, select_train_step
 from primia_tpu_torch.train.monitor import Monitor, NullMonitor
 from primia_tpu_torch.train.optim import make_optimizer
-from primia_tpu_torch.train.steps import build_eval_step, build_train_step
+from primia_tpu_torch.train.steps import build_eval_step
 
 
 def discover_workers(args: Arguments) -> List[str]:
@@ -79,14 +86,16 @@ def discover_workers(args: Arguments) -> List[str]:
     return names
 
 
-def setup_federated(args: Arguments, verbose: bool = True, device="cpu"):
+def setup_federated(args: Arguments, verbose: bool = True, device="cuda"):
     """Load per-worker shards + validation set; securely average stats.
 
     Data layout mirrors the reference: ``{data_dir}/worker{i}`` per
     worker, ``{data_dir}/validation`` for the local val set
     (``utils.py:643-660,814-826``). The statistics are averaged in share
-    space on ``device``. Returns (worker names, per-node images, per-node
+    space on ``device`` (``"cuda"``, the default, raises without a card;
+    or ``"cpu"``). Returns (worker names, per-node images, per-node
     labels, val images, val labels, mean, std, class names)."""
+    device = resolve_device(device) if isinstance(device, str) else torch.device(device)
     worker_names = discover_workers(args)
     channels = 1 if not args.pretrained else 3
     node_imgs, node_labels, means, stds = [], [], [], []
@@ -118,8 +127,9 @@ def setup_federated(args: Arguments, verbose: bool = True, device="cpu"):
 
 
 class FederatedNodes:
-    """N replicas of ``model``, each with its own optimizer, train step and
-    generator, and their aggregation.
+    """N replicas of ``model``, each with its own optimizer, train step (the
+    one :func:`select_train_step` picks, DP-SGD under
+    ``differentially_private``) and generator, and their aggregation.
 
     ``step(batches, lr)`` runs node i's train step on ``batches[i]``, in
     node order, and skips a node whose batch is None; it returns the
@@ -135,7 +145,7 @@ class FederatedNodes:
         device = torch.device(device)
         self.models = [model] + [copy.deepcopy(model) for _ in range(n_nodes - 1)]
         self.optimizers = [make_optimizer(args, m) for m in self.models]
-        self.steps = [build_train_step(m, o, args, mean, std, class_weights, device)
+        self.steps = [select_train_step(m, o, args, mean, std, class_weights, device)
                       for m, o in zip(self.models, self.optimizers)]
         self.device = device
         self.gens = [S.stream(device, args.seed, 99, i) for i in range(n_nodes)]
@@ -183,8 +193,6 @@ def main_federated(args: Arguments, verbose: bool = True, device="cuda",
         raise NotImplementedError(
             "federated training against live grid nodes (--websockets) needs serve/*, "
             "which is not ported yet (ROADMAP queue 1, slice 6)")
-    if args.differentially_private:
-        raise NotImplementedError("DP-SGD is not ported yet (ROADMAP queue 1, slice 5)")
     device = resolve_device(device) if isinstance(device, str) else torch.device(device)
 
     timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
@@ -214,7 +222,10 @@ def main_federated(args: Arguments, verbose: bool = True, device="cuda",
         ck = ckpt.load_model(args.resume_checkpoint)
         start_at_epoch = int(ck["epoch"]) + 1
         msd = ck["model_state_dict"]
-        model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+        # a DP + EMA checkpoint's model is the average: the nodes continue
+        # from the raw parameters saved beside it
+        model.load_state_dict(from_jax_tree(ck.get("raw_params", msd["params"]),
+                                            msd["state"]))
         if verbose:
             print(f"Resuming from {args.resume_checkpoint} at epoch {start_at_epoch}")
 
@@ -248,6 +259,22 @@ def main_federated(args: Arguments, verbose: bool = True, device="cuda",
                              max(args.test_batch_size, 64), shuffle=False, pad_final=True)
     eval_step = build_eval_step(nodes.models[0], args, mean, std, cw, device)
 
+    # DP parameter averaging of the aggregated model across aggregation
+    # rounds; it starts at the first aggregation (or from a checkpoint's
+    # average), and until then the raw model is evaluated
+    ema = parameter_ema(args, nodes.models[0], started=False)
+    if ema is not None and args.resume_checkpoint and "raw_params" in ck:
+        ema.model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+        ema.started = True
+    ema_eval_step = None if ema is None else build_eval_step(ema.model, args, mean, std, cw,
+                                                             device)
+
+    def evaluated():
+        """(the model evaluated and saved, its eval step)"""
+        if ema is not None and ema.started:
+            return ema.model, ema_eval_step
+        return nodes.models[0], eval_step
+
     agg_round = 0  # fresh dealer randomness per sync: repeated masks
     # would let a party cancel them across rounds and see update deltas
 
@@ -258,10 +285,12 @@ def main_federated(args: Arguments, verbose: bool = True, device="cuda",
         nodes.aggregate(agg_weights, key)
         if not args.keep_optim_dict:
             nodes.reset_optimizers()
+        if ema is not None:
+            ema.update()
 
     # after aggregate() every replica holds the aggregated model: node 0's
-    # is the one evaluated and saved
-    run_eval(eval_step, val_loader, 0, class_names, verbose)
+    # (or its average under DP) is the one evaluated and saved
+    run_eval(evaluated()[1], val_loader, 0, class_names, verbose)
 
     matthews_scores, model_paths = [], []
     os.makedirs(weights_dir, exist_ok=True)
@@ -283,17 +312,34 @@ def main_federated(args: Arguments, verbose: bool = True, device="cuda",
         mon.add_scalar("lr", epoch, float(lr))
         if verbose:
             print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, epoch_loss))
+        if args.differentially_private and verbose:
+            # per-node accounting: each node's mechanism touches only its
+            # own shard; the line leads with the worst node
+            per_node = []
+            for w, imgs, nb in zip(worker_names, node_imgs, num_batches):
+                eps, alpha = rdp_epsilon(
+                    noise_multiplier=args.noise_multiplier,
+                    sample_rate=min(args.batch_size / max(len(imgs), 1), 1.0),
+                    steps=epoch * nb, delta=args.target_delta)
+                per_node.append((w, eps, alpha))
+            worst = max(per_node, key=lambda t: t[1])
+            print("(eps = {:.2f}, delta = {}) at alpha = {} [worst node: {}; "
+                  "per-node eps: {}]".format(worst[1], args.target_delta, worst[2], worst[0],
+                                             ", ".join(f"{w}={e:.2f}" for w, e, _ in per_node)))
 
         if (epoch % args.test_interval) == 0:
-            val_loss, matthews = run_eval(eval_step, val_loader, epoch, class_names, verbose)
+            saved, saved_eval = evaluated()
+            val_loss, matthews = run_eval(saved_eval, val_loader, epoch, class_names, verbose)
             mon.add_scalar("val_loss", epoch, float(val_loss))
             mon.add_scalar("val_mcc", epoch, float(matthews))
             model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
                 exp_name, epoch * reps))
-            ckpt.save_model(model_path, epoch=epoch, model=nodes.models[0], args=args,
+            ckpt.save_model(model_path, epoch=epoch, model=saved, args=args,
                             val_mean_std=(mean, std),
                             opt_state={w: o.state_to_jax()
-                                       for w, o in zip(worker_names, nodes.optimizers)})
+                                       for w, o in zip(worker_names, nodes.optimizers)},
+                            raw_params=None if saved is nodes.models[0]
+                            else to_jax_tree(nodes.models[0])[0])
             matthews_scores.append(matthews)
             model_paths.append(model_path)
 

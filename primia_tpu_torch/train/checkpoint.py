@@ -126,6 +126,7 @@ def save_model(
     args: Arguments,
     val_mean_std: Tuple[np.ndarray, np.ndarray],
     opt_state: Optional[Any] = None,
+    raw_params: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Write a checkpoint of ``model`` (one of the port's modules) that
     both packages load: ``{epoch, args, val_mean_std, model_state_dict:
@@ -133,15 +134,22 @@ def save_model(
     layout. ``opt_state`` is the optimizer's ``state_to_jax()``
     (``train/optim.py``): ``AdamState``/``SGDState`` with the moments as
     one flat vector in the JAX parameter order; federated training saves
-    ``{worker: state}``, one per node, as the JAX package does."""
+    ``{worker: state}``, one per node, as the JAX package does.
+    ``raw_params`` (a JAX params tree) goes under the top-level key
+    ``raw_params``: under DP with a parameter EMA, ``model`` is the average
+    and these are the parameters the optimizer state belongs to. The JAX
+    package's loader decodes the key and uses nothing of it."""
     params, state = to_jax_tree(model)
-    save_tree(path, {
+    tree = {
         "epoch": int(epoch),
         "args": args.to_json(),
         "val_mean_std": (np.asarray(val_mean_std[0]), np.asarray(val_mean_std[1])),
         "model_state_dict": {"params": params, "state": state},
         "optim_state_dict": opt_state,
-    })
+    }
+    if raw_params is not None:
+        tree["raw_params"] = raw_params
+    save_tree(path, tree)
 
 
 def load_model(path) -> Dict[str, Any]:

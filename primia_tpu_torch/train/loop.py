@@ -13,8 +13,13 @@ Port of the local path of ``primia_tpu/train/loop.py`` (reference
   deleted, and the run appended to the registry CSV.
 
 Federated training goes to ``parallel/federated.py:main_federated``, as
-in the JAX package. DP-SGD with its parameter EMA (slice 5) is not ported
-yet and raises.
+in the JAX package. Under ``differentially_private`` the step is DP-SGD
+(``train/dp.py:select_train_step``), the epsilon spent so far is printed
+after each epoch, and with ``0 < parameter_ema < 1`` evaluation and
+checkpoints use the parameters' moving average. Such a checkpoint also
+keeps the raw parameters (top-level key ``raw_params``, which the JAX
+package's loader reads and ignores), so a resume continues the raw
+trajectory with its momentum; the JAX package saves the average alone.
 """
 
 from __future__ import annotations
@@ -32,14 +37,15 @@ from primia_tpu_torch.config import Arguments
 from primia_tpu_torch.data import (BatchLoader, ImageFolderDataset, calc_mean_std,
                                    device_prefetch, random_split, to_device_resident)
 from primia_tpu_torch.nn import create_model
-from primia_tpu_torch.nn.jax_params import from_jax_tree
+from primia_tpu_torch.nn.jax_params import from_jax_tree, to_jax_tree
 from primia_tpu_torch.train import checkpoint as ckpt
 from primia_tpu_torch.train import metrics as M
 from primia_tpu_torch.train.losses import calc_class_weights
 from primia_tpu_torch.train.lr import make_scheduler
 from primia_tpu_torch.train.monitor import Monitor, NullMonitor
 from primia_tpu_torch.train.optim import make_optimizer
-from primia_tpu_torch.train.steps import build_eval_step, build_train_step
+from primia_tpu_torch.train.dp import parameter_ema, rdp_epsilon, select_train_step
+from primia_tpu_torch.train.steps import build_eval_step
 
 
 def load_train_val(args: Arguments):
@@ -101,8 +107,6 @@ def main(args: Arguments, verbose: bool = True, device="cuda",
         from primia_tpu_torch.parallel.federated import main_federated
 
         return main_federated(args, verbose=verbose, device=device, weights_dir=weights_dir)
-    if args.differentially_private:
-        raise NotImplementedError("DP-SGD is not ported yet (ROADMAP queue 1, slice 5)")
     device = resolve_device(device) if isinstance(device, str) else torch.device(device)
 
     timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
@@ -130,7 +134,10 @@ def main(args: Arguments, verbose: bool = True, device="cuda",
         state = ckpt.load_model(args.resume_checkpoint)
         start_at_epoch = int(state["epoch"]) + 1
         msd = state["model_state_dict"]
-        model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+        # a DP + EMA checkpoint's model is the average; the raw parameters
+        # the optimizer state belongs to sit beside it
+        model.load_state_dict(from_jax_tree(state.get("raw_params", msd["params"]),
+                                            msd["state"]))
         osd = state["optim_state_dict"]
         if bool(getattr(state["args"], "train_federated", False)) or isinstance(osd, dict):
             # federated checkpoints carry a per-worker optimizer dict; a
@@ -142,8 +149,14 @@ def main(args: Arguments, verbose: bool = True, device="cuda",
         if verbose:
             print(f"Resuming from {args.resume_checkpoint} at epoch {start_at_epoch}")
 
-    train_step = build_train_step(model, optimizer, args, mean, std, cw, device)
-    eval_step = build_eval_step(model, args, mean, std, cw, device)
+    train_step = select_train_step(model, optimizer, args, mean, std, cw, device)
+    # DP parameter averaging (post-processing, no privacy cost): eval and
+    # checkpoints use the EMA of the trajectory
+    ema = parameter_ema(args, model)
+    if ema is not None and args.resume_checkpoint and "raw_params" in state:
+        ema.model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+    eval_model = model if ema is None else ema.model
+    eval_step = build_eval_step(eval_model, args, mean, std, cw, device)
 
     # datasets live on the card when they fit: batches become gathers there
     train_loader = BatchLoader(to_device_resident(train_imgs, device), train_labels,
@@ -159,21 +172,31 @@ def main(args: Arguments, verbose: bool = True, device="cuda",
     os.makedirs(weights_dir, exist_ok=True)
     for epoch in range(start_at_epoch, args.epochs + 1):
         lr = scheduler.get_lr(epoch - 1)
-        step_losses = [train_step(gen, b.images, b.labels, b.mask, lr)
-                       for b in device_prefetch(train_loader, device)]
+        step_losses = []
+        for b in device_prefetch(train_loader, device):
+            step_losses.append(train_step(gen, b.images, b.labels, b.mask, lr))
+            if ema is not None:
+                ema.update()
         epoch_loss = float(torch.stack(step_losses).mean())
         mon.add_scalar("train_loss", epoch, epoch_loss)
         mon.add_scalar("lr", epoch, float(lr))
         if verbose:
             print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, epoch_loss))
+        if args.differentially_private and verbose:
+            eps, alpha = rdp_epsilon(
+                noise_multiplier=args.noise_multiplier,
+                sample_rate=min(args.batch_size / max(len(train_imgs), 1), 1.0),
+                steps=epoch * len(train_loader), delta=args.target_delta)
+            print(f"(eps = {eps:.2f}, delta = {args.target_delta}) at alpha = {alpha}")
         if (epoch % args.test_interval) == 0:
             val_loss, matthews = run_eval(eval_step, val_loader, epoch, class_names, verbose)
             mon.add_scalar("val_loss", epoch, float(val_loss))
             mon.add_scalar("val_mcc", epoch, float(matthews))
             model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
                 exp_name, epoch * (args.repetitions_dataset or 1)))
-            ckpt.save_model(model_path, epoch=epoch, model=model, args=args,
-                            val_mean_std=(mean, std), opt_state=optimizer.state_to_jax())
+            ckpt.save_model(model_path, epoch=epoch, model=eval_model, args=args,
+                            val_mean_std=(mean, std), opt_state=optimizer.state_to_jax(),
+                            raw_params=None if ema is None else to_jax_tree(model)[0])
             matthews_scores.append(matthews)
             model_paths.append(model_path)
 

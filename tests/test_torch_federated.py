@@ -382,6 +382,24 @@ def test_federated_cli_defaults_to_cuda_and_raises_without_a_card(tmp_path, fed_
                     "--train_federated"])
 
 
+def test_setup_federated_defaults_to_cuda(tmp_path, fed_dir, monkeypatch):
+    """``setup_federated`` runs on the card unless told otherwise, like every
+    entry point of the port: without one it raises; ``device="cpu"`` loads
+    the shards."""
+    import inspect
+
+    assert inspect.signature(federated.setup_federated).parameters["device"].default == "cuda"
+    monkeypatch.chdir(tmp_path)
+    args = Arguments.from_ini(_ini(tmp_path, TINY), cmd_args=argparse.Namespace(
+        data_dir=str(fed_dir), train_federated=True))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        federated.setup_federated(args, verbose=False)
+    names, node_imgs = federated.setup_federated(args, verbose=False, device="cpu")[:2]
+    assert names == ["worker1", "worker2", "worker3"]
+    assert [len(x) for x in node_imgs] == [12, 9, 6]
+
+
 def test_cli_sets_mixup_lambda_off_one_half_when_federated(tmp_path, monkeypatch):
     """The JAX CLI's guard: federated + mixup + ``mixup_lambda = 0.5`` warns
     and trains with 0.499; without ``--train_federated`` 0.5 stays."""

@@ -214,7 +214,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "mpc/ring_ops", "mpc/beaver", "mpc/prg", "mpc/dcf", "mpc/compare", "mpc/engine",
         "mpc/inference", "ops/cuda_dcf", "ops/cuda_wgrad", "ops/cuda_bn",
         "ops/cuda_kernels", "ops/numerics", "nn/torch_import", "mpc/aggregation",
-        "data/distribute", "parallel/__init__", "parallel/federated")} <= scanned
+        "data/distribute", "parallel/__init__", "parallel/federated", "train/dp")} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "primia_tpu")]
     assert bad == []

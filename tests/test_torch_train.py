@@ -450,7 +450,11 @@ def test_train_cli_resumes_model_and_optimizer(tmp_path, fixture_dir, monkeypatc
 
 
 def test_train_cli_defaults_to_cuda_and_ports_only_the_local_path(tmp_path, fixture_dir,
-                                                                   monkeypatch):
+                                                                   monkeypatch, capsys):
+    """The CLI defaults to cuda and raises without a card; ``--websockets``
+    (slice 6) raises; DP-SGD runs on the CPU fixture, locally and on the
+    simulated federation (the fixture's train folder as one worker), and
+    prints its epsilon lines."""
     from primia_tpu_torch.cli import train
     from primia_tpu_torch.train import loop
 
@@ -463,13 +467,20 @@ def test_train_cli_defaults_to_cuda_and_ports_only_the_local_path(tmp_path, fixt
         train.main(argv)
     with pytest.raises(NotImplementedError, match="slice 6"):
         train.main(argv + ["--train_federated", "--websockets", "--device", "cpu"])
-    args = Arguments.from_ini(ini, cmd_args=argparse.Namespace(data_dir="d"))
+    capsys.readouterr()
+    args = Arguments.from_ini(ini, cmd_args=argparse.Namespace(
+        data_dir=str(fixture_dir / "train")))
     args.differentially_private = True
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        loop.main(args, device="cpu")
-    args.train_federated = True
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        loop.main(args, device="cpu")
+    args.parameter_ema = 0.9
+    assert np.isfinite(loop.main(args, device="cpu", weights_dir=str(tmp_path / "local")))
+    assert "(eps = " in capsys.readouterr().out
+    fed = tmp_path / "fed"
+    fed.mkdir()
+    (fed / "worker1").symlink_to(fixture_dir / "train", target_is_directory=True)
+    (fed / "validation").symlink_to(fixture_dir / "test", target_is_directory=True)
+    args.data_dir, args.train_federated = str(fed), True
+    assert np.isfinite(loop.main(args, device="cpu", weights_dir=str(tmp_path / "federated")))
+    assert "[worst node: worker1; per-node eps: worker1=" in capsys.readouterr().out
 
 
 def test_run_registry_appends_rows(tmp_path):
