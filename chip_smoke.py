@@ -119,17 +119,26 @@ Phases, each reported on its own line; any failure exits nonzero:
                   at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
                   layer4 3x3 conv (512->512 at 7x7); both times.
 13. encrypt       slice 3's main path: the inference CLI with
-                  --encrypted_inference (fss) on cuda, in-process, on 8 of the
-                  serve phase's DICOMs with its checkpoint at --batch_size 4,
-                  counters set to 0 just before and read just after (K4 21
-                  times per forward, the CLAHE kernel once per batch); the
-                  encrypted logits against the card's plain predict step
-                  (max |d| <= max(0.02, 1e-3 * max |logit|), argmax equal
-                  wherever the plain top-two margin exceeds that); once more
-                  with --mpc_batch_tile 2; the encrypted predict timed at
-                  batch 1 and 4 (p50/p75 over 5 batches after 1 warm-up, s per
-                  image, peak memory, device busy ms, idle share and device ms
-                  by category from the profiler over one batch).
+                  --encrypted_inference --protocol fss on cuda, in-process, on
+                  8 of the serve phase's DICOMs with its checkpoint at
+                  --batch_size 4, counters set to 0 just before and read just
+                  after (K4 21 times per forward, the CLAHE kernel once per
+                  batch); the encrypted logits against the card's plain
+                  predict step (max |d| <= max(0.02, 1e-3 * max |logit|),
+                  argmax equal wherever the plain top-two margin exceeds
+                  that); once more with --mpc_batch_tile 2; the encrypted
+                  predict timed at batch 1 and 4 (p50/p75 over 5 batches
+                  after 1 warm-up, s per image, peak memory; device busy ms,
+                  idle share, device operations and device ms by category
+                  from the profiler over one batch).
+13b. encrypt_snn  slice 3b's path (a): the same with --protocol snn
+                  (SecureNN, plain tensor ops): CLAHE once a batch and K4
+                  never; the same checks and timings, beside phase 13's.
+13c. encrypt_group slice 3b's path (b): a group-norm ResNet-18 at 224 px with
+                  the DP INI's settings (max pool, no CLAHE), seeded He
+                  weights and an N(0, 0.1) head, under --protocol fss (K4 21
+                  times a forward, nothing else: private group norm compares
+                  nothing) and snn (no launch); the same checks and timings.
 14. train_optin  slice 2b's main path: the train CLI as in phase 7 under the
                   JAX package's switches PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1,
                   counters set to 0 just before and read just after (K7 6
@@ -184,7 +193,12 @@ Phases, each reported on its own line; any failure exits nonzero:
                   PRIMIA_PALLAS_WGRAD=1 (K7 three times a step: layer3's
                   stride-1 convs at 512 x 256 x 14 x 14), whose clipped sum at
                   sigma = 0 is held to the default ghost step's (2e-2 of each
-                  leaf's max); at sigma = 0 in float32 with augmentation off,
+                  leaf's max); the microbatched step (K = 4, bfloat16) on 64
+                  examples under PRIMIA_PALLAS_WGRAD=1, K7 through its vmap
+                  rule once an example for each of layer2's and layer3's
+                  stride-1 convs (384 launches), its clipped sum at sigma = 0
+                  held to the unswitched step's (2e-2), both steps' p50 over
+                  2; at sigma = 0 in float32 with augmentation off,
                   the ghost and microbatched clipped sums on the card (16
                   examples) and the card's microbatched step against the
                   CPU's (4 examples), each within 1e-4 of a leaf's max; the
@@ -203,8 +217,10 @@ Phases, each reported on its own line; any failure exits nonzero:
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
                   K8, the noise phase for K5; every path's counts beside
-                  them, K1 and CLAHE also on the federated path, K1 on the DP
-                  and federated DP CLIs, K7 on the switched ghost steps, and
+                  them, K1 and CLAHE also on the federated path, CLAHE on the
+                  snn encrypted CLI, K4 on the group model's fss CLI, K1 on
+                  the DP and federated DP CLIs, K7 on the switched ghost and
+                  microbatched steps, and
                   a kernel launched no time on any of its paths fails the
                   run), the card's name and power limit, and as the last line
                   {"ok": true, "device": {...}}.
@@ -212,11 +228,12 @@ Phases, each reported on its own line; any failure exits nonzero:
 Nothing here imports JAX or the JAX package. Work files go to
 ``build/chip_smoke/``, and the profile tables to ``--profile_out`` (default
 ``build/chip_smoke/profile.txt``; the train step's, the encrypted
-predict's, the default and switched steps of phase 14 and the federated
-step beside it, the DP steps', with ``.train``, ``.encrypt``,
+predict's under each protocol and model, the default and switched steps
+of phase 14 and the federated step beside it, the DP steps', with
+``.train``, ``.encrypt``, ``.encrypt_snn``, ``.encrypt_group_{fss,snn}``,
 ``.train_optin.{default,switched}``, ``.federated`` or
 ``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
-Phases run in the order 1-5, 8-12, 6, 13, 7, 14, 15, 16.
+Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16.
 """
 
 from __future__ import annotations
@@ -250,7 +267,7 @@ KERNELS = {
     # "path" is the path whose count the kernels line reports; "also" names
     # the other paths that must launch the kernel (the federated nodes' steps)
     "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
-              "also": ("federated",), "kernel": ("clahe_kernel",),
+              "also": ("federated", "encrypt_snn"), "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
                   "also": ("federated", "dp", "dp_federated"), "kernel": ("tent_rows_kernel",),
@@ -261,12 +278,13 @@ KERNELS = {
                       "path": "train_twopass0", "kernel": ("tent_bilinear_kernel",),
                       "source": "primia_tpu_torch/csrc/tent.cu"},
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
-                 "kernel": ("dcf_sign_kernel",), "source": "primia_tpu_torch/csrc/dcf.cu"},
+                 "also": ("encrypt_group",), "kernel": ("dcf_sign_kernel",),
+                 "source": "primia_tpu_torch/csrc/dcf.cu"},
     # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
     # function's time counts each kernel named here (K7's second, reducing
     # pass included)
     "conv3x3_wgrad": {"replaces": "primia_tpu/ops/pallas_wgrad.py:122", "path": "train_optin",
-                      "also": ("dp_ghost_optin",),
+                      "also": ("dp_ghost_optin", "dp_micro_optin"),
                       "kernel": ("conv3x3_wgrad_kernel", "conv3x3_wgrad_reduce_kernel"),
                       "source": "primia_tpu_torch/csrc/wgrad.cu"},
     # the switched batch norm, three launches a direction: K8's sums, and the
@@ -1220,48 +1238,45 @@ def encrypt_ms_by_category(avgs, gemm_kernels):
     return cats
 
 
-def phase_encrypt(torch, seed, work, profile_out):
-    """Phase 13: the encrypted inference CLI on the card, its logits
-    against the plain predict step, the tiled form, and timings. Returns
-    the launch counts of the CLI's run."""
-    import numpy as np
-    from torch.autograd import DeviceType
-
+def encrypted_cli(torch, data, weights, extra):
+    """The inference CLI with --encrypted_inference on cuda, in-process, at
+    batch ENCRYPT_BATCH, the counters set to 0 just before and read just
+    after. Returns its predictions, launches and seconds."""
     from primia_tpu_torch.cli import inference
+
+    argv = ["--data_dir", str(data), "--model_weights", str(weights), "--batch_size",
+            str(ENCRYPT_BATCH), "--device", "cuda", "--encrypted_inference", *extra]
+    out, err = io.StringIO(), io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = inference.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    lines = out.getvalue().splitlines()
+    check(json.loads(lines[0]) == json.loads(json.dumps(result))
+          and lines[-1].startswith("Took "), "encrypted CLI output contract broken")
+    preds = result["Inference Results"]
+    check(len(preds) == ENCRYPT_IMAGES, f"bad encrypted results: {str(preds)[:200]}")
+    return [preds[i] for i in range(ENCRYPT_IMAGES)], launches, secs
+
+
+def encrypted_case(torch, work, weights, subdir):
+    """ENCRYPT_IMAGES of the serve phase's DICOMs in their own directory,
+    the checkpoint's model on the card, its plain logits for them, their
+    limit (max(0.02, 1e-3 max |logit|), phase 13's) and where the plain
+    top-two margin exceeds it."""
     from primia_tpu_torch.data import PathDataset
-    from primia_tpu_torch.mpc.inference import build_encrypted_predict
     from primia_tpu_torch.nn import create_model
     from primia_tpu_torch.nn.jax_params import from_jax_tree
     from primia_tpu_torch.train import checkpoint as ckpt
     from primia_tpu_torch.train.steps import build_predict_step
 
-    weights = work / "resnet18-canonical.pt"
-    data = work / "encrypt_images"
+    data = work / subdir
     data.mkdir()
     for f in sorted((work / "images").glob("*.dcm"))[:ENCRYPT_IMAGES]:
         shutil.copy(f, data / f.name)
-    n_batches = ENCRYPT_IMAGES // ENCRYPT_BATCH
-    say("encrypt", images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH, protocol="fss",
-        weights=weights.relative_to(ROOT))
-
-    def run_cli(extra):
-        argv = ["--data_dir", str(data), "--model_weights", str(weights), "--batch_size",
-                str(ENCRYPT_BATCH), "--device", "cuda", "--encrypted_inference", *extra]
-        out, err = io.StringIO(), io.StringIO()
-        reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            result = inference.main(argv)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = read_launches()
-        lines = out.getvalue().splitlines()
-        check(json.loads(lines[0]) == json.loads(json.dumps(result))
-              and lines[-1].startswith("Took "), "encrypted CLI output contract broken")
-        preds = result["Inference Results"]
-        check(len(preds) == ENCRYPT_IMAGES, f"bad encrypted results: {str(preds)[:200]}")
-        return [preds[i] for i in range(ENCRYPT_IMAGES)], launches, secs
-
     state = ckpt.load_model(weights)
     args = state["args"]
     mean, std = state["val_mean_std"]
@@ -1275,34 +1290,55 @@ def phase_encrypt(torch, seed, work, profile_out):
     limit = max(0.02, 1e-3 * float(want.abs().max()))
     top2 = want.topk(2, dim=1).values
     sure = (top2[:, 0] - top2[:, 1]) > limit
+    return dict(weights=weights, data=data, args=args, mean=mean, std=std, model=model,
+                imgs=imgs, chunks=chunks, want=want, limit=limit, sure=sure)
 
-    results = {}
-    for tile in (None, 2):
-        extra = [] if tile is None else ["--mpc_batch_tile", str(tile)]
-        preds, launches, cli_s = run_cli(extra)
-        forwards = n_batches * (1 if tile is None else -(-ENCRYPT_BATCH // tile))
-        expect = idle_launches(dcf_sign=SIGNS_PER_FORWARD * forwards, clahe=forwards)
-        check(launches == expect, f"encrypted CLI (tile {tile}) launches {launches}, "
-              f"expected {expect}")
-        enc = build_encrypted_predict(model, args, mean, std, "cuda",
-                                      precision_fractional=args.precision_fractional or 16,
-                                      batch_tile=tile)
-        got = torch.cat([enc(c) for c in chunks]).cpu()
-        dl = float((got - want).abs().max())
-        check(got.shape == want.shape and bool(torch.isfinite(got).all()) and dl <= limit,
-              f"encrypted logits (tile {tile}) off the plain step: max |d| {dl} > {limit}")
-        check(bool((got.argmax(1) == want.argmax(1))[sure].all()),
-              f"encrypted argmax (tile {tile}) differs where the plain margin exceeds {limit}")
-        check(preds == got.argmax(1).tolist(), f"CLI predictions (tile {tile}) {preds} are "
-              f"not the encrypted logits' argmax {got.argmax(1).tolist()}")
-        say("encrypt", mpc_batch_tile=tile, cli_seconds=f"{cli_s:.4f}",
-            launches=json.dumps(launches), max_abs_dlogit=dl, limit=limit,
-            max_abs_logit=float(want.abs().max()), argmax_equal=int((got.argmax(1) ==
-                                                                    want.argmax(1)).sum()),
-            margin_above_limit=int(sure.sum()), predictions=preds)
-        results[tile] = (launches, enc)
 
-    enc = results[None][1]
+def check_encrypted(torch, phase, case, protocol, expect_per_forward, tile=None):
+    """The encrypted CLI (``--protocol``, ``--mpc_batch_tile``) with its
+    exact launches (``expect_per_forward`` times the forwards) and the
+    encrypted predict's logits against the plain step's. Returns the
+    launches, the predict and the CLI's seconds."""
+    from primia_tpu_torch.mpc.inference import build_encrypted_predict
+
+    extra = ["--protocol", protocol] + ([] if tile is None else ["--mpc_batch_tile", str(tile)])
+    preds, launches, cli_s = encrypted_cli(torch, case["data"], case["weights"], extra)
+    forwards = ENCRYPT_IMAGES // ENCRYPT_BATCH * (1 if tile is None else
+                                                  -(-ENCRYPT_BATCH // tile))
+    expect = idle_launches(**{k: n * forwards for k, n in expect_per_forward.items()})
+    check(launches == expect, f"{phase}: encrypted CLI ({protocol}, tile {tile}) launches "
+          f"{launches}, expected {expect}")
+    args = case["args"]
+    enc = build_encrypted_predict(case["model"], args, case["mean"], case["std"], "cuda",
+                                  precision_fractional=args.precision_fractional or 16,
+                                  protocol=protocol, batch_tile=tile)
+    got = torch.cat([enc(c) for c in case["chunks"]]).cpu()
+    want, limit, sure = case["want"], case["limit"], case["sure"]
+    dl = float((got - want).abs().max())
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()) and dl <= limit,
+          f"{phase}: encrypted logits ({protocol}, tile {tile}) off the plain step: max |d| "
+          f"{dl} > {limit}")
+    check(bool((got.argmax(1) == want.argmax(1))[sure].all()),
+          f"{phase}: encrypted argmax ({protocol}, tile {tile}) differs where the plain margin "
+          f"exceeds {limit}")
+    check(preds == got.argmax(1).tolist(), f"{phase}: CLI predictions ({protocol}, tile "
+          f"{tile}) {preds} are not the encrypted logits' argmax {got.argmax(1).tolist()}")
+    say(phase, protocol=protocol, mpc_batch_tile=tile, cli_seconds=f"{cli_s:.4f}",
+        launches=json.dumps(launches), max_abs_dlogit=dl, limit=limit,
+        max_abs_logit=float(want.abs().max()),
+        argmax_equal=int((got.argmax(1) == want.argmax(1)).sum()),
+        margin_above_limit=int(sure.sum()), predictions=preds)
+    return launches, enc, cli_s
+
+
+def time_encrypted(torch, np, phase, protocol, enc, imgs, profile_out, tag):
+    """The encrypted predict at batch 1 and ENCRYPT_BATCH: p50/p75 over 5
+    batches after one warm-up, s per image and peak memory; then one batch
+    of each under the profiler: device busy ms, idle share against the
+    p50, device operations a forward, device ms by category (the table
+    of the full batch goes to ``profile_out`` with ``tag``)."""
+    from torch.autograd import DeviceType
+
     for B in (1, ENCRYPT_BATCH):
         x = imgs[:B]
         enc(x)  # warm-up
@@ -1317,25 +1353,95 @@ def phase_encrypt(torch, seed, work, profile_out):
             batch_ms.append((time.perf_counter() - t0) * 1e3)
         q = np.percentile(batch_ms, [50, 75])
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        say("encrypt", batch=B, batches_timed=len(batch_ms), batch_ms_p50=f"{q[0]:.4f}",
-            batch_ms_p75=f"{q[1]:.4f}", s_per_image_p50=f"{q[0] * 1e-3 / B:.6f}",
-            peak_memory_gb=f"{peak_gb:.3f}")
-    prof = trace(torch, lambda: enc(imgs[:ENCRYPT_BATCH]), 1)
-    avgs = prof.key_averages()
-    gemm_kernels = {k.name for e in prof.events() if e.name == "aten::_int_mm"
-                    for k in e.kernels}
-    check(gemm_kernels, "the profile links no kernel to aten::_int_mm")
-    enc_profile = profile_out.with_name(profile_out.stem + ".encrypt" + profile_out.suffix)
-    enc_profile.parent.mkdir(parents=True, exist_ok=True)
-    enc_profile.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=40))
-    cats = encrypt_ms_by_category(avgs, gemm_kernels)
-    busy = sum(cats.values())
-    launched = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
-    idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
-    say("encrypt", batch=ENCRYPT_BATCH, device_busy_ms_per_batch=f"{busy:.4f}",
-        idle_share=idle, device_ops_per_batch=launched)
-    say("encrypt", device_ms_per_batch=json.dumps({k: round(v, 6) for k, v in cats.items()}))
+        prof = trace(torch, lambda: enc(x), 1)
+        avgs = prof.key_averages()
+        gemm_kernels = {k.name for e in prof.events() if e.name == "aten::_int_mm"
+                        for k in e.kernels}
+        check(gemm_kernels, f"{phase}: the profile links no kernel to aten::_int_mm")
+        cats = encrypt_ms_by_category(avgs, gemm_kernels)
+        busy = sum(cats.values())
+        launched = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+        idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
+        say(phase, protocol=protocol, batch=B, batches_timed=len(batch_ms),
+            batch_ms_p50=f"{q[0]:.4f}", batch_ms_p75=f"{q[1]:.4f}",
+            s_per_image_p50=f"{q[0] * 1e-3 / B:.6f}", peak_memory_gb=f"{peak_gb:.3f}",
+            device_busy_ms_per_batch=f"{busy:.4f}", idle_share=idle,
+            device_ops_per_forward=launched)
+        say(phase, protocol=protocol, batch=B,
+            device_ms_per_batch=json.dumps({k: round(v, 6) for k, v in cats.items()}))
+    path = profile_out.with_name(profile_out.stem + tag + profile_out.suffix)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=40))
+
+
+def phase_encrypt(torch, seed, work, profile_out):
+    """Phase 13: the encrypted inference CLI (FSS) on the card, its logits
+    against the plain predict step, the tiled form, and timings. Returns
+    the launch counts of the CLI's run."""
+    import numpy as np
+
+    case = encrypted_case(torch, work, work / "resnet18-canonical.pt", "encrypt_images")
+    say("encrypt", images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH, protocol="fss",
+        weights=case["weights"].relative_to(ROOT))
+    results = {tile: check_encrypted(torch, "encrypt", case, "fss",
+                                     {"dcf_sign": SIGNS_PER_FORWARD, "clahe": 1}, tile)
+               for tile in (None, 2)}
+    time_encrypted(torch, np, "encrypt", "fss", results[None][1], case["imgs"], profile_out,
+                   ".encrypt")
     return results[None][0]
+
+
+def phase_encrypt_snn(torch, seed, work, profile_out):
+    """Phase 13b, slice 3b's path (a): the encrypted CLI with --protocol snn
+    (SecureNN) on the canonical checkpoint (batch norm folded, CLAHE, max
+    pool): CLAHE once a forward and no K4; logits against the plain step;
+    timed as phase 13, whose FSS numbers are beside these in this call.
+    Returns the CLI's launch counts."""
+    import numpy as np
+
+    case = encrypted_case(torch, work, work / "resnet18-canonical.pt", "encrypt_snn_images")
+    say("encrypt_snn", images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH, protocol="snn",
+        weights=case["weights"].relative_to(ROOT))
+    launches, enc, _ = check_encrypted(torch, "encrypt_snn", case, "snn", {"clahe": 1})
+    time_encrypted(torch, np, "encrypt_snn", "snn", enc, case["imgs"], profile_out,
+                   ".encrypt_snn")
+    return launches
+
+
+def phase_encrypt_group(torch, seed, work, profile_out):
+    """Phase 13c, slice 3b's path (b): a group-norm ResNet-18 at 224 px
+    with the DP recipe's settings (configs/torch/pneumonia-resnet-dp.ini:
+    group norm, max pool, no CLAHE), seeded He weights and an N(0, 0.1)
+    head (the init's zero fc would make every logit 0), served encrypted
+    under FSS (K4 21 times a forward: 17 ReLUs and 4 max-pool rounds; group
+    norm compares nothing) and under SecureNN (no kernel); logits against
+    the plain step; both timed. Returns the FSS CLI's launch counts."""
+    import numpy as np
+
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.train import checkpoint as ckpt
+
+    os.environ.pop("PRIMIA_PRETRAINED", None)
+    args = Arguments.from_ini(DP_CONFIG)
+    check(args.normalization == "group" and args.pooling_type == "max" and not args.clahe
+          and args.train_resolution == RES, f"unexpected DP config: {DP_CONFIG}")
+    torch.manual_seed(seed + 5)
+    model = create_model(args, num_classes=3, device="cpu")
+    torch.nn.init.normal_(model.fc.weight, std=0.1)
+    weights = work / "resnet18-group.pt"
+    ckpt.save_model(weights, epoch=0, model=model, args=args,
+                    val_mean_std=(np.full(3, 0.45), np.full(3, 0.25)))
+    case = encrypted_case(torch, work, weights, "encrypt_group_images")
+    say("encrypt_group", config=DP_CONFIG.relative_to(ROOT), images=ENCRYPT_IMAGES,
+        batch=ENCRYPT_BATCH, weights=weights.relative_to(ROOT), head_std=0.1)
+    by_protocol = {}
+    for protocol, per_forward in (("fss", {"dcf_sign": SIGNS_PER_FORWARD}), ("snn", {})):
+        launches, enc, _ = check_encrypted(torch, "encrypt_group", case, protocol, per_forward)
+        time_encrypted(torch, np, "encrypt_group", protocol, enc, case["imgs"], profile_out,
+                       f".encrypt_group_{protocol}")
+        by_protocol[protocol] = launches
+    return by_protocol["fss"]
 
 
 def synthetic_xrays(np, rng, n):
@@ -2068,6 +2174,7 @@ DP_FED_PER_CLASS = (171, 171, 170)  # 512 images a node: one step each
 DP_TIMED_STEPS, DP_WARMUP = 6, 2
 DP_FED_TIMED_STEPS, DP_FED_TIMED_ROUNDS = 2, 2
 K7_PER_GHOST_STEP = 3  # layer3's three stride-1 256 -> 256 convs (T = 196, the gram form)
+DP_G1_BATCH = 64  # the microbatched step under PRIMIA_PALLAS_WGRAD=1, cut from 512
 
 
 def run_cli(torch, cli, argv, cwd, log):
@@ -2302,6 +2409,41 @@ def phase_dp(torch, seed, work, profile_out):
     check(ok, f"switched ghost step's clipped sum vs the default's: {gap} of {leaf}'s max")
     say("dp", ghost_optin_vs_default="ok", max_gap_of_leaf_max=gap, leaf=leaf, limit=2e-2)
 
+    # K7 under vmap: the microbatched step (K = 4, bfloat16) under
+    # PRIMIA_PALLAS_WGRAD=1 on DP_G1_BATCH examples, K7 once an example for
+    # each of layer2's and layer3's stride-1 convs; at sigma = 0 its clipped
+    # sum against the unswitched step's within the switched ghost step's 2e-2
+    g1 = Arguments.from_ini(ini)
+    g1.noise_multiplier = 0.0
+    part = [t[:DP_G1_BATCH] for t in (batches[0].images, batches[0].labels, batches[0].mask)]
+    grads, g1_ms, g1_launches = {}, {}, {}
+    for label, names in (("default", ()), ("switched", ("PRIMIA_PALLAS_WGRAD",))):
+        with switches(*names):
+            model = fresh(g1, fc_std=0.05)
+            rec = _GradRecorder(model)
+            step = dp.build_dp_train_step(model, rec, g1, mean, std, None, dev)
+
+            def run_g1():
+                step(torch.Generator(device=dev).manual_seed(seed), *part, g1.lr)
+
+            reset_launches()
+            run_g1()
+            torch.cuda.synchronize()
+            g1_launches[label] = read_launches()
+            grads[label] = rec.grads
+            g1_ms[label] = p50_ms(torch, np, run_g1, 2)
+    want = idle_launches(tent_rows=2, conv3x3_wgrad=DP_G1_BATCH * K7_PER_STEP)
+    check(g1_launches["switched"] == want, f"switched microbatched step: launches "
+          f"{g1_launches['switched']}, expected {want}")
+    check(g1_launches["default"] == idle_launches(tent_rows=2),
+          f"default microbatched step: launches {g1_launches['default']}")
+    gap, leaf, ok = leaf_gap(torch, grads["switched"], grads["default"], 2e-2)
+    check(ok, f"switched microbatched step's clipped sum vs the default's: {gap} of {leaf}'s max")
+    say("dp.micro_optin", batch=DP_G1_BATCH, augment_multiplicity=g1.augment_multiplicity,
+        launches=json.dumps(g1_launches["switched"]), max_gap_of_leaf_max=gap, leaf=leaf,
+        limit=2e-2, switched_step_ms_p50=f"{g1_ms['switched']:.4f}",
+        default_step_ms_p50=f"{g1_ms['default']:.4f}", steps_timed=2)
+
     # sigma = 0, float32, augmentation off: ghost against microbatched on the
     # card on the data set's images, and the card's microbatched step against
     # the CPU's on uniform noise images: the synthetic X-rays' saturated flat
@@ -2432,7 +2574,8 @@ def phase_dp(torch, seed, work, profile_out):
         round_steps=fargs.sync_every_n_batch,
         examples_per_s_p50=f"{3 * DP_BATCH / (step_ms * 1e-3):.2f}",
         peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    return {"dp": launches, "dp_ghost_optin": ghost_launches, "dp_federated": fed_launches}
+    return {"dp": launches, "dp_ghost_optin": ghost_launches,
+            "dp_micro_optin": g1_launches["switched"], "dp_federated": fed_launches}
 
 
 def _leaf(tree, path):
@@ -2491,6 +2634,8 @@ def main(argv=None) -> int:
         by_path = {"noise": noise_launches,
                    "serve": phase_serve(torch, opts.seed, work, profile_out)}
         by_path["encrypt"] = phase_encrypt(torch, opts.seed, work, profile_out)
+        by_path["encrypt_snn"] = phase_encrypt_snn(torch, opts.seed, work, profile_out)
+        by_path["encrypt_group"] = phase_encrypt_group(torch, opts.seed, work, profile_out)
         by_path["train"], by_path["train_twopass0"], ctx = phase_train(torch, opts.seed, work,
                                                                        profile_out)
         by_path["train_optin"] = phase_train_optin(torch, opts.seed, work, profile_out, ctx)

@@ -3,7 +3,8 @@
 Port of ``primia_tpu/cli/evaluate.py``: loads a checkpoint (its stored
 ``args`` and ``val_mean_std``), runs the model over an image-folder test
 set and prints the stats table (confusion matrix, per-class
-recall/precision/F1, MCC, ROC-AUC). Runs on CUDA unless ``--device cpu``.
+recall/precision/F1, MCC, ROC-AUC). Runs on CUDA unless ``--device cpu``
+(``--cuda``, the reference's flag, is ``--device cuda``).
 The metrics are numpy only; the table needs tabulate.
 """
 
@@ -28,6 +29,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--device", choices=DEVICES, default="cuda",
         help="Where to run (default cuda; without a card it raises).",
+    )
+    parser.add_argument(
+        "--cuda", dest="device", action="store_const", const="cuda",
+        help="The reference's flag: the same as --device cuda.",
     )
     return parser
 

@@ -4,12 +4,14 @@ Port of the plain path of ``primia_tpu/cli/inference.py``: loads a
 checkpoint (its ``args`` and ``val_mean_std``), classifies every image in
 ``--data_dir`` and writes ``{"Inference Results": {index: prediction}}``
 as JSON to stdout, then the class counts and the wall-clock time. Runs
-on CUDA unless ``--device cpu``. ``--encrypted_inference`` runs the
-forward over secret shares (``mpc/inference.py``: two computing parties
-and the dealer simulated on the device, FSS comparisons on kernel K4,
-fixed point in Z_{2^64}); the output contract is the same. Remote
-inference (``--websockets_config``, ``--http_protocol``) is not ported
-yet.
+on CUDA unless ``--device cpu`` (``--cuda``, the reference's flag, is
+``--device cuda``). ``--encrypted_inference`` runs the forward over secret
+shares (``mpc/inference.py``: two computing parties and the dealer
+simulated on the device, fixed point in Z_{2^64}, batch norm folded and
+group norm private); ``--protocol`` picks its comparison, ``fss`` (the
+DCF comparison on kernel K4, the default here) or ``snn`` (SecureNN). The
+output contract is the same. Remote inference (``--websockets_config``,
+``--http_protocol``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--protocol", type=str, default="fss", choices=("snn", "fss"),
         help="MPC comparison protocol for encrypted inference: fss (the DCF "
-        "comparison, kernel K4); snn (SecureNN) is not ported yet and raises",
+        "comparison, kernel K4) or snn (SecureNN)",
     )
     parser.add_argument(
         "--batch_size", type=int, default=1,
@@ -51,6 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--device", choices=DEVICES, default="cuda",
         help="Where to run (default cuda; without a card it raises).",
+    )
+    parser.add_argument(
+        "--cuda", dest="device", action="store_const", const="cuda",
+        help="The reference's flag: the same as --device cuda.",
     )
     return parser
 

@@ -1,33 +1,38 @@
 """The MPC engine: the plain ops of a forward pass, over additive shares.
 
-Port of ``primia_tpu/mpc/engine.py``, the part encrypted inference with
-the FSS comparison needs, on NCHW activations ``(2, B, C, H, W)`` and
-OIHW conv weights:
+Port of ``primia_tpu/mpc/engine.py`` on NCHW activations ``(2, B, C, H,
+W)`` and OIHW conv weights:
 
 - conv2d / linear: Beaver triples shaped like the op
   (``mpc/beaver.py``), truncation after every fixed-point product;
-- relu: one sign extraction (``mpc/compare.py``, kernel K4) and one
-  Beaver product, ``relu(x) = x * (1 - msb(x))``;
+- relu: one sign extraction and one Beaver product, ``relu(x) = x * (1 -
+  msb(x))``; the comparison is the context's protocol: SecureNN
+  (``"snn"``, ``mpc/securenn.py``, the default, as in the JAX package) or
+  the FSS comparison on kernel K4 (``"fss"``, ``mpc/compare.py``);
 - max_pool: the window's shifted views, then a tournament max, each round
   one batched comparison;
 - avg_pool: the int64 window sum times ``encode(1 / w^2)``, truncated;
-- affine: folded inference batch norm, one Beaver product.
+- affine: folded inference batch norm, one Beaver product;
+- batch_norm and group_norm: private statistics, the Newton inverse square
+  root of ``mpc/functions.py``; group norm's statistics per example and
+  group, its divisions by the group's count exact
+  (``functions.div_public_int``, a deviation from the JAX package's
+  16-bit ``encode(1 / n)``).
 
 Dealer randomness comes from the context's ``torch.Generator``, drawn in
-the order the ops run. Not ported yet (ROADMAP, queue 1, slice 3):
-``batch_norm`` and ``group_norm`` (private statistics, which need
-``mpc/functions.py``), the RNN ops, and the SecureNN comparison
-(``protocol="snn"``, ``mpc/securenn.py``).
+the order the ops run. Not ported yet (ROADMAP, queue 1): the RNN ops.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from primia_tpu_torch.mpc import beaver, compare, fixed
+from primia_tpu_torch.mpc import beaver, compare, fixed, securenn
+from primia_tpu_torch.mpc import functions as Fn
 from primia_tpu_torch.mpc import shares as S
 from primia_tpu_torch.mpc.shares import AShare
 
@@ -37,30 +42,34 @@ _PAD_NEG = -(1 << 30)
 
 
 def check_protocol(protocol: str) -> None:
-    """Only ``"fss"`` (the DCF comparison, the inference CLI's default) is
-    ported; ``"snn"`` raises ``NotImplementedError``."""
-    if protocol == "snn":
-        raise NotImplementedError(
-            "protocol 'snn' (SecureNN, mpc/securenn.py) is not ported yet: "
-            "ROADMAP, queue 1, slice 3")
-    if protocol != "fss":
+    """``"snn"`` (SecureNN) or ``"fss"`` (the DCF comparison on K4)."""
+    if protocol not in ("snn", "fss"):
         raise ValueError(f"unknown MPC protocol {protocol!r}")
 
 
 class MpcContext:
-    """The simulated dealer's random stream for one forward pass; the
-    private-comparison protocol is checked (:func:`check_protocol`) and
-    is the FSS comparison."""
+    """The simulated dealer's random stream for one forward pass, the
+    fixed point, and the private-comparison protocol (:func:`check_protocol`).
+
+    ``debug_domains`` (default: ``PRIMIA_MPC_DEBUG_DOMAINS=1``) makes the
+    approximations of ``mpc/functions.py`` reveal their operands and raise
+    outside their domains: a deliberate breach of privacy, for debugging."""
 
     def __init__(self, gen: torch.Generator, frac_bits: int = fixed.DEFAULT_FRAC_BITS,
-                 protocol: str = "fss"):
+                 protocol: str = "snn", debug_domains: Optional[bool] = None):
         check_protocol(protocol)
         self.gen = gen
         self.frac_bits = frac_bits
+        self.protocol = protocol
+        if debug_domains is None:
+            debug_domains = os.environ.get("PRIMIA_MPC_DEBUG_DOMAINS", "0") == "1"
+        self.debug_domains = debug_domains
 
     def sign_shares(self, x: AShare) -> AShare:
-        """Shares of 1{x < 0}."""
-        return compare.sign_shares(self.gen, x)
+        """Shares of 1{x < 0}, by the context's protocol."""
+        if self.protocol == "fss":
+            return compare.sign_shares(self.gen, x)
+        return securenn.sign_shares(self.gen, x)
 
 
 def _channel_shape(x: AShare, n_channels: int):
@@ -96,8 +105,51 @@ class MpcEngine:
 
     def affine(self, x: AShare, scale: AShare, offset: AShare) -> AShare:
         """Channelwise x * scale + offset (folded batch norm)."""
-        scale_b = scale.data.reshape(_channel_shape(x, scale.shape[0])).expand(x.data.shape)
-        return self.bias_add(self._mul(x, AShare(scale_b)), offset)
+        return self.bias_add(self._mul(x, self._per_channel(scale, x)), offset)
+
+    def _per_channel(self, v: AShare, x: AShare) -> AShare:
+        """A (C,) sharing broadcast over x's channel axis."""
+        return AShare(v.data.reshape(_channel_shape(x, v.shape[0])).expand(x.data.shape))
+
+    def batch_norm(self, x: AShare, mean: AShare, var: AShare, weight: AShare, bias: AShare,
+                   eps: float = 1e-5) -> AShare:
+        """Inference batch norm with *private* statistics: rsqrt(var + eps)
+        by the Newton iteration of ``functions.inverse_sqrt`` on the (C,)
+        vectors, then ``(x - mean) * weight * rsqrt + bias``. The
+        alternative to the offline fold (:meth:`affine`) when the
+        statistics are secret."""
+        inv_std = Fn.inverse_sqrt(self.ctx, S.add_public(var, int(fixed.encode(
+            eps, self.ctx.frac_bits))))
+        scale = self._mul(weight, inv_std)
+        y = self._mul(S.sub(x, self._per_channel(mean, x)), self._per_channel(scale, x))
+        return self.bias_add(y, bias)
+
+    def group_norm(self, x: AShare, gamma: AShare, beta: AShare, groups: int = 32,
+                   eps: float = 1e-5) -> AShare:
+        """*Private* GroupNorm: statistics per example over each of
+        ``min(groups, C)`` groups of neighbouring channels, in share space,
+        then the channelwise affine with the shared gamma and beta. The
+        group sums are local; the mean and the variance divide by the
+        public count n = (C / G) H W exactly (``functions.div_public_int``);
+        one Beaver square; rsqrt(var + eps) by Newton
+        (``functions.inverse_sqrt``, for var + eps in ~[1e-2, 200]); one
+        product with x - mean. NCHW groups are ``(B, G, C/G * H * W)``: group
+        g holds channels g C/G ... (g + 1) C/G - 1, as the JAX package's
+        NHWC ``(B, HW, G, C/G)``."""
+        _, B, C, H, W = x.data.shape
+        G = min(groups, C)
+        if C % G:
+            raise ValueError(f"group_norm: channels {C} not divisible by groups {G}")
+        n = (C // G) * H * W
+        xg = x.data.reshape(2, B, G, n)
+        mean = Fn.div_public_int(self.ctx, AShare(xg.sum(-1, keepdim=True)), n)
+        xc = AShare(xg - mean.data)
+        sq = self._mul(xc, xc)
+        var = Fn.div_public_int(self.ctx, AShare(sq.data.sum(-1, keepdim=True)), n)
+        inv = Fn.inverse_sqrt(self.ctx, S.add_public(var, int(fixed.encode(
+            eps, self.ctx.frac_bits))))
+        xhat = self._mul(xc, AShare(inv.data.expand(xg.shape)))
+        return self.affine(AShare(xhat.data.reshape(x.data.shape)), gamma, beta)
 
     def relu(self, x: AShare) -> AShare:
         pos = S.add_public(S.neg(self.ctx.sign_shares(x)), 1)

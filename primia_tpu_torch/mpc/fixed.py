@@ -26,6 +26,12 @@ def decode(v: torch.Tensor, frac_bits: int = DEFAULT_FRAC_BITS) -> torch.Tensor:
     return v.double() / float(1 << frac_bits)
 
 
+def truncate_public(v: torch.Tensor, frac_bits: int = DEFAULT_FRAC_BITS) -> torch.Tensor:
+    """Exact truncation of a public ring value after a product: an
+    arithmetic shift, rounding toward -inf."""
+    return v >> frac_bits
+
+
 def truncate_shares(shares: torch.Tensor, frac_bits: int = DEFAULT_FRAC_BITS) -> torch.Tensor:
     """SecureML local truncation of a (2, ...) additive sharing: party 0
     shifts its share, party 1 shifts the negation and negates back. For

@@ -1,13 +1,15 @@
 """Encrypted (SMPC) inference: the ResNet forward over secret shares.
 
 Port of ``primia_tpu/mpc/inference.py``. The model owner folds batch norm
-into a channelwise affine (``nn/core.py:bn_fold``, float32), encodes the
-weights in fixed point and shares them, once. For each batch (or tile of
-it) the data owner preprocesses in plaintext (u8 -> / 255 -> CLAHE, the
-kernels K3 -> ``(x - mean) / std`` in float32), encodes and shares; two
-computing parties and the dealer, simulated on one device on the leading
-party axis, run the forward in share space (``mpc/engine.py``: Beaver
-convs, DCF ReLUs and max-pool rounds on kernel K4); only the logits are
+into a channelwise affine (``nn/core.py:bn_fold``, float32), keeps group
+norm's gamma and beta as they are, encodes the weights in fixed point and
+shares them, once. For each batch (or tile of it) the data owner
+preprocesses in plaintext (u8 -> / 255 -> CLAHE, the kernel K3 -> ``(x -
+mean) / std`` in float32), encodes and shares; two computing parties and
+the dealer, simulated on one device on the leading party axis, run the
+forward in share space (``mpc/engine.py``: Beaver convs, private group
+norm, ReLUs and max-pool rounds on the protocol's comparison: SecureNN by
+default, or the FSS comparison on kernel K4); only the logits are
 revealed. With max pooling the stem pools before its ReLU (they commute),
 which quarters the private ReLU's elements, as the reference does.
 
@@ -46,13 +48,18 @@ _MODEL, _DATA, _DEALER = 0, 1, 2
 
 def folded_weights(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's weights as its owner shares them, by module name: conv
-    ``weight``; batch norm folded to ``scale`` and ``offset``; the fc's
-    ``weight`` and ``bias``. All float32."""
+    ``weight``; batch norm folded to ``scale`` and ``offset``; group norm's
+    own ``weight`` and ``bias`` (gamma and beta: its statistics depend on
+    the input, so the engine normalises privately); the fc's ``weight`` and
+    ``bias``. All float32."""
     out: Dict[str, torch.Tensor] = {}
     for name, m in model.named_modules():
         pre = f"{name}." if name else ""
         if isinstance(m, Conv):
             out[pre + "weight"] = m.weight.detach().float()
+        elif isinstance(m, Norm) and m.kind == "group":
+            out[pre + "weight"] = m.weight.detach().float()
+            out[pre + "bias"] = m.bias.detach().float()
         elif isinstance(m, Norm):
             f = bn_fold(m.weight.detach(), m.bias.detach(), m.running_mean, m.running_var,
                         m.eps)
@@ -67,7 +74,11 @@ def _conv(E: MpcEngine, P: Dict[str, AShare], conv: Conv, name: str, x: AShare) 
     return E.conv2d(x, P[name + ".weight"], conv.stride, conv.padding)
 
 
-def _affine(E: MpcEngine, P: Dict[str, AShare], name: str, x: AShare) -> AShare:
+def _norm(E: MpcEngine, P: Dict[str, AShare], norm: Norm, name: str, x: AShare) -> AShare:
+    """Batch norm as its folded affine; group norm private, on the shared
+    gamma and beta."""
+    if norm.kind == "group":
+        return E.group_norm(x, P[name + ".weight"], P[name + ".bias"], norm.groups, norm.eps)
     return E.affine(x, P[name + ".scale"], P[name + ".offset"])
 
 
@@ -75,13 +86,13 @@ def basic_block_forward(E: MpcEngine, P: Dict[str, AShare], block: nn.Module, pr
                         x: AShare) -> AShare:
     """``primia_tpu/nn/resnet.py:_basic_block_forward`` in share space;
     ``pre`` names the block's weights in ``P`` (``"layer2.0."``)."""
-    out = _affine(E, P, pre + "bn1", _conv(E, P, block.conv1, pre + "conv1", x))
+    out = _norm(E, P, block.bn1, pre + "bn1", _conv(E, P, block.conv1, pre + "conv1", x))
     out = E.relu(out)
-    out = _affine(E, P, pre + "bn2", _conv(E, P, block.conv2, pre + "conv2", out))
+    out = _norm(E, P, block.bn2, pre + "bn2", _conv(E, P, block.conv2, pre + "conv2", out))
     identity = x
     if block.down_conv is not None:
-        identity = _affine(E, P, pre + "down_bn",
-                           _conv(E, P, block.down_conv, pre + "down_conv", x))
+        identity = _norm(E, P, block.down_bn, pre + "down_bn",
+                         _conv(E, P, block.down_conv, pre + "down_conv", x))
     return E.relu(E.add(out, identity))
 
 
@@ -89,7 +100,7 @@ def resnet_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: ASha
                    swap_pool_relu: bool) -> AShare:
     """``primia_tpu/nn/resnet.py:resnet_forward`` in share space: x is a
     (2, B, C, H, W) sharing, the result the logits' sharing."""
-    out = _affine(E, P, "bn1", _conv(E, P, model.conv1, "conv1", x))
+    out = _norm(E, P, model.bn1, "bn1", _conv(E, P, model.conv1, "conv1", x))
 
     def stem_pool(t):
         if model.pooling == "max":
@@ -107,7 +118,7 @@ def resnet_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: ASha
 
 def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
                             precision_fractional: int = fixed.DEFAULT_FRAC_BITS,
-                            protocol: str = "fss",
+                            protocol: str = "snn",
                             batch_tile: Optional[int] = None) -> Callable:
     """Returns ``predict(images_u8) -> logits`` over secret shares, called
     as the plain ``train/steps.py:build_predict_step``'s: (B, R, R, C)
@@ -118,11 +129,6 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     calls before it. ``batch_tile``: run the share-space forward
     ``batch_tile`` images at a time, each tile with its own streams; the
     tail is padded with copies of the first image and sliced off."""
-    if getattr(args, "normalization", "batch") == "group" or any(
-            isinstance(m, Norm) and m.kind == "group" for m in model.modules()):
-        raise NotImplementedError(
-            "encrypted inference of normalization = group needs private group "
-            "norm (mpc/functions.py), which is not ported yet: ROADMAP, queue 1, slice 3")
     device = torch.device(device)
     check_protocol(protocol)
     frac = precision_fractional

@@ -53,9 +53,18 @@ def share(gen: torch.Generator, value: torch.Tensor) -> AShare:
     return AShare(torch.stack([value - r, r]))
 
 
+def make_public(value: torch.Tensor) -> AShare:
+    """The trivial sharing of a public ring value: party 0 holds it all."""
+    return AShare(torch.stack([value, torch.zeros_like(value)]))
+
+
 def reconstruct(x: AShare) -> torch.Tensor:
     """Open a sharing: the sum over the party axis."""
     return x.data.sum(0)
+
+
+def zeros_like(x: AShare) -> AShare:
+    return AShare(torch.zeros_like(x.data))
 
 
 def add(x: AShare, y: AShare) -> AShare:
@@ -75,6 +84,12 @@ def add_public(x: AShare, c) -> AShare:
     d = x.data.clone()
     d[0] += c
     return AShare(d)
+
+
+def mul_public(x: AShare, c) -> AShare:
+    """x * public integer c (a Python int or an int64 tensor that
+    broadcasts against x): both parties scale their shares."""
+    return AShare(x.data * c)
 
 
 def stack(shares: Sequence[AShare], axis: int = 0) -> AShare:

@@ -145,6 +145,7 @@ class Norm(nn.Module):
     running-statistics update."""
 
     momentum = 0.1
+    groups = 32  # group norm's groups (min(groups, C)), as the JAX package's default
 
     def __init__(self, c: int, kind: str = "batch", eps: float = 1e-5):
         super().__init__()
@@ -159,7 +160,7 @@ class Norm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "group":
-            return group_norm(x, self.weight, self.bias, eps=self.eps)
+            return group_norm(x, self.weight, self.bias, self.groups, self.eps)
         if self.training:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

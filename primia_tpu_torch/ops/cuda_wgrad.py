@@ -250,11 +250,47 @@ def conv3x3_wgrad_v2(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return conv3x3_wgrad(x, g)
 
 
-class _Conv3x3S1P1(torch.autograd.Function):
+def _wgrad_as(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K7's weight gradient in w's dtype and memory format, as the
+    library's gradient has them (bfloat16 on the train path, rounded from
+    K7's float32 as the JAX package's ``.astype(w.dtype)``)."""
+    return torch.empty_like(w).copy_(conv3x3_wgrad(x, g))
+
+
+class _Wgrad(torch.autograd.Function):
+    """:func:`_wgrad_as` with a ``vmap`` rule: under ``torch.func.vmap`` (the
+    microbatched DP step's per-example gradients) it launches K7 once an
+    example, on that example's views, and stacks the results, the
+    function the JAX package's batched ``pallas_call`` computes."""
+
     @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
+    def forward(x, g, w):
+        return _wgrad_as(x, g, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, g, w):
+        def example(t, dim, i):
+            return t if dim is None else t.select(dim, i)
+
+        return torch.stack([_wgrad_as(*(example(t, d, i) for t, d in zip((x, g, w), in_dims)))
+                            for i in range(info.batch_size)]), 0
+
+
+class _Conv3x3S1P1(torch.autograd.Function):
+    # vmap runs forward and backward batched; K7's launch has a rule of its own
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w):
         return F.conv2d(x, w, padding=1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -267,8 +303,7 @@ class _Conv3x3S1P1(torch.autograd.Function):
             g, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
             [need_x, need_w and not on_k7, False])
         if on_k7:
-            # w's dtype and memory format, as the library's gradient has them
-            dw = torch.empty_like(w).copy_(conv3x3_wgrad(x, g))
+            dw = _Wgrad.apply(x, g, w)
         return dx, dw
 
 
@@ -279,5 +314,6 @@ def conv3x3_s1p1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``F.conv2d`` and the data gradient the library's own, as the JAX
     package left both to XLA; where the weight gradient is K7's, it is
     cast to ``w``'s dtype (bfloat16 on the train path, rounded from K7's
-    float32 as the JAX package's ``.astype(w.dtype)``)."""
+    float32 as the JAX package's ``.astype(w.dtype)``). It runs under
+    ``torch.func.vmap`` too: K7 then launches once an example."""
     return _Conv3x3S1P1.apply(x, w)

@@ -134,9 +134,10 @@ def build_dp_train_step(model: nn.Module, optimizer, args, mean, std,
     The loss is the masked mean of the per-example losses.
 
     Under ``PRIMIA_PALLAS_WGRAD=1`` with bfloat16 compute and
-    ``augment_multiplicity > 1`` an example's K views would reach K7's
-    ``autograd.Function`` (``nn/core.py:Conv``), which ``vmap`` cannot
-    pass: that combination raises ``NotImplementedError``.
+    ``augment_multiplicity > 1`` an example's K views reach K7's
+    ``autograd.Function`` (``nn/core.py:Conv``), whose ``vmap`` rule
+    launches K7 once an example of the chunk, as the JAX package's ``vmap``
+    batches its Pallas weight gradient.
     """
     from torch.func import functional_call, grad_and_value, vmap
 
@@ -145,11 +146,6 @@ def build_dp_train_step(model: nn.Module, optimizer, args, mean, std,
         microbatch = int(os.environ.get("PRIMIA_DP_MICROBATCH", 8))
     K = max(int(getattr(args, "augment_multiplicity", 1)), 1)
     cdtype = resolve_compute_dtype(args, device)
-    if K > 1 and cdtype == torch.bfloat16 and use_pallas_wgrad():
-        raise NotImplementedError(
-            "the microbatched DP-SGD step with augment_multiplicity > 1, compute_dtype "
-            "bfloat16 and PRIMIA_PALLAS_WGRAD=1 would send each example's views through "
-            "K7's autograd.Function, which torch.func.vmap cannot pass (ROADMAP queue 3)")
     _warn_secure_noise()
     in_channels = model.conv1.weight.shape[1]
     augment = build_augment_fn(AugmentConfig.from_args(args), mean, std, in_channels, device)

@@ -299,6 +299,59 @@ def test_sign_shares_on_the_card(cuda_device):
     torch.testing.assert_close(S.reconstruct(sign), (v < 0).long(), rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [32, 64])
+def test_securenn_on_the_card(cuda_device, n_bits):
+    """SecureNN's plain ops on the card (int16 bit circuit, unsigned
+    emulation in int64): the sign reveals 1{x < 0}; the Z_{2^64 - 1}
+    arithmetic and the borrow equal the CPU's bit for bit; share
+    conversion opens to the value. No kernel launches."""
+    from primia_tpu_torch.mpc import securenn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(30)
+    lim = 1 << (30 if n_bits == 32 else 61)
+    v = torch.randint(-lim, lim, (4, 64, 56, 56), device=cuda_device, generator=gen)
+    v.view(-1)[:4] = torch.tensor([0, -1, lim - 1, -lim], device=cuda_device)
+    before = dict(cuda_dcf.launches)
+    sign = securenn.sign_shares(gen, S.share(gen, v), n_bits=n_bits)
+    torch.testing.assert_close(S.reconstruct(sign), (v < 0).long(), rtol=0, atol=0)
+    assert cuda_dcf.launches == before
+    keys = securenn.gen_sign(gen, 4096, n_bits)
+    c = S.rand_ring(gen, (4096,)) & (securenn.MASK32 if n_bits == 32 else -1)
+    bits = securenn._decompose(c, n_bits - 1)
+    got = securenn._borrow(bits, keys.rbits_sh, keys.s)
+    want = securenn._borrow(bits.cpu(), keys.rbits_sh.cpu(), keys.s.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    a, b = S.rand_ring(gen, (4096,)), S.rand_ring(gen, (4096,))
+    a[:3] = torch.tensor([0, -2, -(1 << 63)], device=cuda_device)
+    b = torch.where(b == -1, torch.zeros_like(b), b)
+    a = torch.where(a == -1, torch.zeros_like(a), a)
+    for fn, args in ((securenn.add_mod_m, (a, b)), (securenn.neg_mod_m, (a,))):
+        torch.testing.assert_close(fn(*args).cpu(), fn(*(t.cpu() for t in args)), rtol=0, atol=0)
+    x = torch.randint(0, 1 << 62, (4096,), device=cuda_device, generator=gen)
+    conv = securenn.share_convert(gen, S.share(gen, x))
+    torch.testing.assert_close(securenn.reconstruct_mod_m(conv), x, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_private_group_norm_on_the_card(cuda_device):
+    """The engine's private group norm at the 224 px stem's 1 x 64 x 112 x
+    112 in 32 groups (n = 25,088), on the card: within 2e-3 of the plain
+    group norm."""
+    from primia_tpu_torch.mpc import fixed
+    from primia_tpu_torch.mpc.engine import MpcContext, MpcEngine, reveal_and_decode
+    from primia_tpu_torch.nn.core import group_norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    x = torch.randn((1, 64, 112, 112), device=cuda_device, generator=gen) * 1.5 + 0.5
+    gamma = torch.randn(64, device=cuda_device, generator=gen) * 0.2 + 1.0
+    beta = torch.randn(64, device=cuda_device, generator=gen) * 0.2
+    E = MpcEngine(MpcContext(gen))
+    got = reveal_and_decode(E.group_norm(*(S.share(gen, fixed.encode(t)) for t in
+                                           (x, gamma, beta)), groups=32))
+    torch.testing.assert_close(got.float(), group_norm(x, gamma, beta), rtol=0, atol=2e-3)
+
+
 # ------------------------- the train step's opt-in kernels K7, K8 and K5
 
 def _bf16_cl(shape, device, seed, scale=1.0, shift=0.0):
@@ -370,6 +423,34 @@ def test_conv3x3_s1p1_on_the_card_matches_the_library_conv(cuda_device):
     torch.testing.assert_close(dx, dx_ref, rtol=0, atol=0)
     torch.testing.assert_close(dw.float(), dw_ref.float(), rtol=0,
                                atol=1e-2 * float(dw_ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_conv3x3_s1p1_under_vmap_launches_k7_once_an_example(cuda_device):
+    """Per-example gradients as the microbatched DP step takes them
+    (``vmap(grad(...))`` over examples of K = 4 views, bf16): the weight
+    gradients equal those of per-example calls outside vmap bit for bit
+    (the same K7 launch on the same operands), one launch an example; the
+    data gradients equal too."""
+    from torch.func import grad, vmap
+
+    from primia_tpu_torch.ops import cuda_wgrad
+
+    n, K = 3, 4
+    x = torch.stack([_bf16_cl((K, 128, 14, 14), cuda_device, 40 + i) for i in range(n)])
+    t = torch.stack([_bf16_cl((K, 128, 14, 14), cuda_device, 50 + i) for i in range(n)])
+    w = (torch.randn((128, 128, 3, 3), device=cuda_device) * 0.05).to(torch.bfloat16)
+
+    def loss(w, x, t):
+        return (cuda_wgrad.conv3x3_s1p1(x, w).float() * t.float()).sum()
+
+    before = cuda_wgrad.launches["conv3x3_wgrad"]
+    dw = vmap(grad(loss), in_dims=(None, 0, 0))(w, x, t)
+    assert cuda_wgrad.launches["conv3x3_wgrad"] == before + n
+    dx = vmap(grad(loss, argnums=1), in_dims=(None, 0, 0))(w, x, t)
+    for i in range(n):
+        torch.testing.assert_close(dw[i], grad(loss)(w, x[i], t[i]), rtol=0, atol=0)
+        torch.testing.assert_close(dx[i], grad(loss, argnums=1)(w, x[i], t[i]), rtol=0, atol=0)
 
 
 # the stem and layer4 at batch 200, and ragged shapes (C = 24, 64, 128, 512)

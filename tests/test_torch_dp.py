@@ -352,22 +352,64 @@ def test_split_group_norm_is_bit_equal_and_matches_jax():
                                np.asarray(ref), atol=1e-5)
 
 
-# ------------------------------------------------------------ the vmap trap
+# ------------------------------------------------------------ K7 under vmap
 
 def test_microbatched_step_refuses_k7_under_vmap(monkeypatch):
-    """``PRIMIA_PALLAS_WGRAD=1``, bfloat16 compute and K > 1 would send each
-    example's views through K7's autograd.Function inside vmap: it raises,
-    naming the combination; K = 1 or float32 builds."""
+    """K7 under ``torch.func.vmap`` (this step refused it until its Function
+    had a vmap rule). Per-example weight gradients through
+    ``conv3x3_s1p1`` under ``vmap(grad(...))``, with each example's K = 4
+    views as its batch, equal ``torch.func``'s gradients of ``F.conv2d``
+    (every operand a multiple of 1/4, so every sum is exact), with one K7
+    call an example at that example's shapes; the data gradient too. Then
+    the microbatched step with K = 4, bfloat16 compute and
+    ``PRIMIA_PALLAS_WGRAD=1`` builds and runs, calls K7 for layer2's and
+    layer3's stride-1 convs, and its update at sigma = 0 is within 2e-2 of
+    the unswitched step's largest (bfloat16 rounding of the two weight
+    gradients apart)."""
+    from torch.func import grad, vmap
+
+    from primia_tpu_torch.ops import cuda_wgrad
+
+    calls = []
+    k7 = cuda_wgrad.conv3x3_wgrad
+
+    def counted(x, g):
+        calls.append((tuple(x.shape), tuple(g.shape)))
+        return k7(x, g)
+
+    monkeypatch.setattr(cuda_wgrad, "conv3x3_wgrad", counted)
+    rng = np.random.default_rng(7)
+    n, K, ci, co, H = 3, 4, 8, 16, 5
+    x, t = (torch.from_numpy(np.round(rng.normal(0, 4, s)) / 4).float()
+            for s in ((n, K, ci, H, H), (n, K, co, H, H)))
+    w = torch.from_numpy(np.round(rng.normal(0, 4, (co, ci, 3, 3))) / 4).float()
+
+    def loss(conv, w, x, t):
+        return (conv(x, w) * t).sum()
+
+    k7_loss = partial(loss, cuda_wgrad.conv3x3_s1p1)
+    ref_loss = partial(loss, lambda x, w: torch.nn.functional.conv2d(x, w, padding=1))
+    for argnums in (0, 1):
+        got = vmap(grad(k7_loss, argnums), in_dims=(None, 0, 0))(w, x, t)
+        want = vmap(grad(ref_loss, argnums), in_dims=(None, 0, 0))(w, x, t)
+        assert torch.equal(got, want)
+    assert calls == [((K, ci, H, H), (K, co, H, H))] * n  # the weight gradient's pass only
+
     monkeypatch.setenv("PRIMIA_PALLAS_WGRAD", "1")
-    model = _model()
+    _use_views(monkeypatch, _views(4))
+    batch, lr = _batch(), LR
+    start = _model()
     args = _args(Arguments, K=4)
     args.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError,
-                       match="augment_multiplicity > 1.*bfloat16.*PRIMIA_PALLAS_WGRAD=1"):
-        dp.build_dp_train_step(model, make_optimizer(args, model), args, MEAN, STD, None,
-                               "cpu")
-    args.compute_dtype = "float32"
-    dp.build_dp_train_step(model, make_optimizer(args, model), args, MEAN, STD, None, "cpu")
+    calls.clear()
+    switched = copy.deepcopy(start)
+    _port_step(dp.build_dp_train_step, switched, args, batch, lr, microbatch=4)
+    # 5 real examples and a padded one in 2 chunks of 4: 8 examples a conv
+    assert len(calls) == 2 * 8 and {c[0][0] for c in calls} == {4}
+    monkeypatch.delenv("PRIMIA_PALLAS_WGRAD")
+    default = copy.deepcopy(start)
+    _port_step(dp.build_dp_train_step, default, args, batch, lr, microbatch=4)
+    _assert_updates_close(switched, start, to_jax_tree(default)[0], 2e-2, "switched K7")
 
 
 # ------------------------------------------------------------------- CLIs

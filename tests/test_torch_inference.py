@@ -193,6 +193,19 @@ def test_cli_device_defaults_to_cuda_and_raises_without_one(monkeypatch, jax_che
         evaluate.main(argv)
 
 
+def test_clis_accept_the_reference_cuda_flag():
+    """``--cuda``, which the JAX package's parsers accept for the
+    reference's command lines, is ``--device cuda`` in the port; a later
+    ``--device`` still wins."""
+    from primia_tpu_torch.cli import evaluate, inference
+
+    for parser, argv in ((inference.build_parser(), ["--model_weights", "x"]),
+                         (evaluate.build_parser(), ["--model_weights", "x", "--data_dir", "d"])):
+        assert parser.parse_args(argv + ["--cuda"]).device == "cuda"
+        assert parser.parse_args(argv + ["--cuda", "--device", "cpu"]).device == "cpu"
+        assert parser.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -214,7 +227,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "mpc/ring_ops", "mpc/beaver", "mpc/prg", "mpc/dcf", "mpc/compare", "mpc/engine",
         "mpc/inference", "ops/cuda_dcf", "ops/cuda_wgrad", "ops/cuda_bn",
         "ops/cuda_kernels", "ops/numerics", "nn/torch_import", "mpc/aggregation",
-        "data/distribute", "parallel/__init__", "parallel/federated", "train/dp")} <= scanned
+        "data/distribute", "parallel/__init__", "parallel/federated", "train/dp",
+        "mpc/securenn", "mpc/functions")} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "primia_tpu")]
     assert bad == []

@@ -57,6 +57,17 @@ def _no_materialize_cache(monkeypatch):
     monkeypatch.setenv("PRIMIA_MATERIALIZE_CACHE", "0")
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Share-space code is thousands of small integer ops: under the
+    suite's parallel workers, intra-op threads only wait on each other
+    (tens of times slower than one thread), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ring(rng, shape):
     return rng.integers(-(1 << 63), (1 << 63) - 1, shape, dtype=np.int64, endpoint=True)
 
@@ -75,6 +86,8 @@ def test_encode_decode_and_truncation_match_jax():
     sh = _ring(rng, (2, 300))
     np.testing.assert_array_equal(fixed.truncate_shares(torch.from_numpy(sh)).numpy(),
                                   np.asarray(jfixed.truncate_shares(jnp.asarray(sh))))
+    np.testing.assert_array_equal(fixed.truncate_public(torch.from_numpy(sh[0])).numpy(),
+                                  np.asarray(jfixed.truncate_public(jnp.asarray(sh[0]))))
 
 
 def test_shares_cover_the_ring_and_reconstruct():
@@ -174,7 +187,7 @@ class _Both:
 
 def _engines(seed):
     return (JaxEngine(JaxContext(jax.random.PRNGKey(seed), protocol="fss")),
-            MpcEngine(MpcContext(torch.Generator().manual_seed(seed))))
+            MpcEngine(MpcContext(torch.Generator().manual_seed(seed), protocol="fss")))
 
 
 def _block_case(rng):
@@ -244,7 +257,8 @@ def test_engine_op_matches_jax_engine(op):
     """Both engines with the FSS comparison; the JAX op jitted (eager, each
     of its comparisons compiles its scans anew)."""
     jfn, jargs, p, ref = _op_case(op, np.random.default_rng(8), _Both(10),
-                                  MpcEngine(MpcContext(torch.Generator().manual_seed(9))))
+                                  MpcEngine(MpcContext(torch.Generator().manual_seed(9),
+                                                       protocol="fss")))
     run = jax.jit(lambda key, a: jfn(JaxEngine(JaxContext(key, protocol="fss")), *a))
     j = _nchw(np.asarray(jax_reveal(run(jax.random.PRNGKey(9), jargs))))
     assert p.shape == j.shape == ref.shape
@@ -253,13 +267,81 @@ def test_engine_op_matches_jax_engine(op):
 
 
 def test_engine_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MpcContext(torch.Generator(), protocol="snn")
+    """An unknown protocol raises; SecureNN (the default, as in the JAX
+    package) and a group-norm model build."""
+    with pytest.raises(ValueError, match="unknown MPC protocol"):
+        MpcContext(torch.Generator(), protocol="aby3")
+    assert MpcContext(torch.Generator()).protocol == "snn"
+    assert MpcContext(torch.Generator(), protocol="fss").protocol == "fss"
     args = Arguments.from_ini(CANONICAL)
     args.normalization = "group"
     model = create_model(args, num_classes=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_encrypted_predict(model, args, *MEAN_STD, "cpu")
+    assert callable(build_encrypted_predict(model, args, *MEAN_STD, "cpu"))
+    with pytest.raises(ValueError, match="unknown MPC protocol"):
+        build_encrypted_predict(model, args, *MEAN_STD, "cpu", protocol="aby3")
+
+
+@pytest.mark.parametrize("protocol", ["snn", "fss"])
+def test_relu_and_max_pool_under_both_protocols(protocol):
+    """The engine's comparisons through SecureNN and through the FSS
+    comparison: relu and the max pool within 1e-3 of plaintext."""
+    rng = np.random.default_rng(14)
+    x = rng.uniform(-2, 2, (2, 4, 6, 6))
+    both = _Both(15)
+    E = MpcEngine(MpcContext(torch.Generator().manual_seed(16), protocol=protocol))
+    tx = both.port(x)
+    np.testing.assert_allclose(reveal_and_decode(E.relu(tx)).numpy(), np.maximum(x, 0),
+                               atol=1e-3, rtol=0)
+    want = torch.nn.functional.max_pool2d(torch.from_numpy(x), 3, 2, 1).numpy()
+    np.testing.assert_allclose(reveal_and_decode(E.max_pool(tx, 3, 2, 1)).numpy(), want,
+                               atol=1e-3, rtol=0)
+
+
+def _group_norm_case(shape, groups, seed=5):
+    """x ~ N(0.5, 1.5) NHWC with gamma ~ N(1, 0.2), beta ~ N(0, 0.2)
+    (``tests/test_mpc.py``'s case): the JAX engine's private group norm,
+    the port's, and the plain one, NHWC."""
+    from primia_tpu.nn.core import PLAIN
+    from primia_tpu.nn.core import group_norm as jax_group_norm
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.5, 1.5, shape).astype(np.float32)
+    C = shape[-1]
+    gamma = rng.normal(1.0, 0.2, C).astype(np.float32)
+    beta = rng.normal(0.0, 0.2, C).astype(np.float32)
+    plain = np.asarray(jax_group_norm(PLAIN, jnp.asarray(x), {
+        "gamma": jnp.asarray(gamma), "beta": jnp.asarray(beta)}, groups=groups))
+    both = _Both(seed)
+    J, E = _engines(seed)
+    j = np.asarray(jax_reveal(J.group_norm(both.jax(x), both.jax(gamma), both.jax(beta),
+                                           groups=groups)))
+    p = reveal_and_decode(E.group_norm(both.port(_nchw(x)), both.port(gamma), both.port(beta),
+                                       groups=groups)).numpy()
+    return _nhwc(p), j, plain
+
+
+def test_engine_group_norm_matches_jax():
+    """3 x 6 x 6 x 32 in 8 groups (``tests/test_mpc.py:408``): within the
+    JAX test's 0.03 of the JAX engine and within 1e-3 of plaintext; the
+    port's NCHW groups (B, G, C/G * H * W) are the JAX package's NHWC
+    groups of neighbouring channels."""
+    p, j, plain = _group_norm_case((3, 6, 6, 32), 8)
+    assert p.shape == plain.shape
+    np.testing.assert_allclose(p, j, atol=0.03, rtol=0)
+    np.testing.assert_allclose(p, plain, atol=1e-3, rtol=0)
+
+
+def test_group_norm_divides_by_the_count_exactly():
+    """The deviation on purpose: at the 224 px stem's 1 x 112 x 112 x 64 in
+    32 groups, n = 25,088, and the JAX engine's ``encode(1 / n)`` (3 for
+    2.61 at 16 bits) puts it more than 0.3 off plaintext; the port divides
+    by n exactly (``functions.div_public_int``) and stays within 2e-3."""
+    p, j, plain = _group_norm_case((1, 112, 112, 64), 32)
+    assert np.abs(j - plain).max() > 0.3
+    np.testing.assert_allclose(p, plain, atol=2e-3, rtol=0)
+    with pytest.raises(ValueError, match="not divisible"):
+        _engines(0)[1].group_norm(AShare(torch.zeros(2, 1, 6, 2, 2, dtype=torch.int64)),
+                                  *[AShare(torch.zeros(2, 6, dtype=torch.int64))] * 2, groups=4)
 
 
 # ------------------------------------------------------ the slice, end to end
@@ -304,7 +386,7 @@ def _assert_close_logits(got, want):
 def test_encrypted_predict_matches_plain_jax(slice_case):
     c = slice_case
     before = dict(cuda_clahe.launches)
-    predict = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu")
+    predict = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu", protocol="fss")
     _assert_close_logits(predict(c["imgs"][:2]).numpy(), c["plain"][:2])
     assert cuda_clahe.launches == before
 
@@ -313,7 +395,8 @@ def test_encrypted_predict_batch_tile(slice_case):
     """Tiles of 2 over 3 images: the tail padded and sliced off, a fresh
     dealer stream per tile."""
     c = slice_case
-    predict = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu", batch_tile=2)
+    predict = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu", protocol="fss",
+                                      batch_tile=2)
     _assert_close_logits(predict(c["imgs"]).numpy(), c["plain"])
 
 
@@ -367,8 +450,10 @@ def test_encrypted_inference_cli_on_cpu(slice_case, fixture_dir, tmp_path, capsy
     assert len(got) == 2
     for i, p in got.items():
         assert p == plain[i].argmax() or top2[i, 1] - top2[i, 0] <= TOL
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv + ["--encrypted_inference", "--protocol", "snn", "--device", "cpu"])
+    # SecureNN, the other protocol, gives the same predictions there
+    snn = main(argv + ["--encrypted_inference", "--protocol", "snn", "--device", "cpu"])
+    for i, p in snn["Inference Results"].items():
+        assert p == plain[i].argmax() or top2[i, 1] - top2[i, 0] <= TOL
 
 
 def test_encrypted_cli_defaults_to_cuda_and_raises_without_one(monkeypatch, tmp_path):
@@ -390,6 +475,7 @@ def test_encrypted_predict_matches_jax_encrypted_predict(slice_case):
     c = slice_case
     ref = np.asarray(jax_build(c["md"], c["jargs"], *MEAN_STD, protocol="fss")(
         c["params"], c["state"], c["imgs"][:2]))
-    got = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu")(c["imgs"][:2])
+    got = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu", protocol="fss")(
+        c["imgs"][:2])
     _assert_close_logits(got.numpy(), ref)
     _assert_close_logits(ref, c["plain"][:2])
