@@ -59,8 +59,9 @@ Phases, each reported on its own line; any failure exits nonzero:
                   relative, BN running statistics within 1e-4).
 8. dcf_sign       K4, the FSS sign kernel, against its plain version on the
                   card, bit for bit, at N = 802,816 (the largest call of a
-                  224 px forward at batch 1: the stem max-pool's first
-                  round), at a ragged N = 300 and at five boundary points;
+                  224 px ResNet forward at batch 1: the stem max-pool's first
+                  round), at N = 3,211,264 (VGG-16's first ReLU at batch 1),
+                  at a ragged N = 300 and at five boundary points;
                   the share sums equal (1 - 2c) * 1{x < alpha}. kernel_ms,
                   call_ms, plain_ms as above; bound_ms from the integer
                   operations (the rotations and xors of the Threefry blocks
@@ -74,7 +75,9 @@ Phases, each reported on its own line; any failure exits nonzero:
 9. wgrad          K7, the 3x3/s1/p1 weight gradient of the opt-in train path,
                   against its plain version (within 1e-3 of max |dW|) at the
                   train step's two shapes (layer2: 200 x 128 x 28 x 28, layer3:
-                  200 x 256 x 14 x 14) and two ragged ones, and bit-identical
+                  200 x 256 x 14 x 14), the DP ghost step's, VGG-16's three
+                  at batch 64 (128 -> 128 at 112^2, 128 -> 256 and 256 -> 256
+                  at 56^2) and two ragged ones, and bit-identical
                   over two calls; times as above, bound from the bf16
                   tensor-core operations at 989 TFLOP/s or the bytes,
                   library_ms ``torch.nn.grad.conv2d_weight`` (cuDNN); each
@@ -85,7 +88,9 @@ Phases, each reported on its own line; any failure exits nonzero:
 10. bn            the switched batch norm's six launches (three a
                   direction) against their plain versions on the same inputs,
                   at the stem's 200 x 64 x 112 x 112, layer3's 200 x 256 x 14
-                  x 14, layer4's 200 x 512 x 7 x 7 and a ragged shape: K8's
+                  x 14, layer4's 200 x 512 x 7 x 7, SimpleConv@224's 4 x 8 x
+                  111 x 111, 4 x 32 x 54 x 54 and 4 x 128 x 12 x 12 and a
+                  ragged shape: K8's
                   sums and gradient sums (their partials' sum within 1e-5 of
                   the sums of absolute values); the two finalizes (their sums
                   within 1e-6 of the partials' absolute sums; mean, var, the
@@ -212,7 +217,54 @@ Phases, each reported on its own line; any failure exits nonzero:
                   else, the EMA checkpoint with kept optimizers; the
                   federated step's p50 (3 node steps at batch 512) and a
                   round's (a step and a secure aggregation).
-17. kernels       one JSON line with each kernel's error, times, bound and
+17. vgg           slice 6a: VGG-16 (configs/torch/pneumonia-vgg.ini: 224 px,
+                  3 channels, CLAHE, mixup, batch 64; its pretrained = yes
+                  finds no weights file and keeps the He init, as the JAX
+                  package does) from seeded weights with an N(0, 0.05)
+                  classifier (its own N(0, 0.01) leaves logits near 1e-3,
+                  too small for the checks to bite; SimpleConv's
+                  checkpoints get an N(0, 0.1) head): the inference CLI at
+                  batch 16 on phase 6's DICOMs (CLAHE once a batch), the
+                  card's logits for 4 images against the CPU's; the train
+                  CLI for one epoch on phase 7's 600 DICOMs (K1 four times
+                  and CLAHE once a step); 12 timed steps at batch 64 beside 12
+                  under PRIMIA_PALLAS_WGRAD=1 (K7 four times a step: the JAX
+                  rule keeps the library's weight gradient at 512 channels),
+                  one bf16 step switched against default (loss within 1e-2
+                  relative, the convs' and the head's gradients within 2e-2
+                  of max: the switch moves no forward bit); one f32
+                  step on noise images card against CPU (loss within 1e-4
+                  relative, classifier gradients within 1e-3 of max); the
+                  encrypted CLI on 4 DICOMs at batch 1 with --mpc_batch_tile
+                  1 under fss (K4 25 times a forward: 15 ReLUs, 5 pools of 2
+                  rounds) and snn, logits as phase 13, timed at batch 1 (p50
+                  of 3, peak memory, device operations).
+18. simpleconv    slice 6a: SimpleConv@224 (configs/torch/pneumonia-conv.ini:
+                  1 channel, batch norm, CLAHE, mixup, batch 4) the same way:
+                  served, trained (K1 four times and CLAHE once a step), 24
+                  timed steps beside 24 under PRIMIA_PALLAS_BN=1 (each of the
+                  BN's six launches 3 times a step: C = 8, 32, 128 on 111^2,
+                  54^2, 12^2 maps; one step switched against default: loss,
+                  the head's gradients and the running statistics within
+                  2e-2), card against CPU, encrypted at batch 4
+                  under fss (K4 20 times a forward) and snn; then
+                  configs/torch/mnist.ini (SimpleConv@28) through the train CLI
+                  with --data_dir mnist on a synthetic 10-class IDX set of 640
+                  and 100 digits under $MNIST_DIR, one epoch (K1 twice a
+                  step, nothing else).
+19. conv_dp       slice 6a: configs/torch/pneumonia-conv-dp.ini (SimpleConv@224,
+                  group norm, batch 512, K = 4, sigma 2.0, SGD, EMA; epochs
+                  60 -> 1, test_interval 2 -> 1) through the train CLI on
+                  phase 16's 1,024 DICOMs (2 steps, K1 twice a step over the
+                  2,048 views), its epsilon line against the accountant, 2
+                  timed microbatched steps (p50, examples/s, peak memory);
+                  its group-norm model with an N(0, 0.1) head served
+                  encrypted at batch 4 under fss (K4 20 times a forward) and
+                  snn; then configs/torch/pneumonia-conv-dp-federated.ini
+                  (K = 16, sigma 3.0) with --train_federated on phase 16's 3
+                  nodes of 512 images: one step a node and one secure
+                  aggregation (K1 twice a node step).
+20. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
@@ -220,7 +272,8 @@ Phases, each reported on its own line; any failure exits nonzero:
                   them, K1 and CLAHE also on the federated path, CLAHE on the
                   snn encrypted CLI, K4 on the group model's fss CLI, K1 on
                   the DP and federated DP CLIs, K7 on the switched ghost and
-                  microbatched steps, and
+                  microbatched steps; K1, CLAHE, K4, K7 and the BN launches
+                  on phases 17-19's paths; and
                   a kernel launched no time on any of its paths fails the
                   run), the card's name and power limit, and as the last line
                   {"ok": true, "device": {...}}.
@@ -233,7 +286,9 @@ of phase 14 and the federated step beside it, the DP steps', with
 ``.train``, ``.encrypt``, ``.encrypt_snn``, ``.encrypt_group_{fss,snn}``,
 ``.train_optin.{default,switched}``, ``.federated`` or
 ``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
-Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16.
+Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19.
+Earlier phases run shallower to make room for 17-19: phases 7 and 14 time 12
+steps (24 before), phase 16's DP steps 3 after 1 warm-up (6 after 2).
 """
 
 from __future__ import annotations
@@ -257,7 +312,7 @@ BATCH = 16
 RES = 224
 TRAIN_PER_CLASS, TEST_PER_CLASS = 200, 20
 TRAIN_BATCH = 200
-TIMED_STEPS = 24
+TIMED_STEPS = 12
 CLASSES = ("bacterial pneumonia", "normal", "viral pneumonia")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -267,10 +322,14 @@ KERNELS = {
     # "path" is the path whose count the kernels line reports; "also" names
     # the other paths that must launch the kernel (the federated nodes' steps)
     "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
-              "also": ("federated", "encrypt_snn"), "kernel": ("clahe_kernel",),
+              "also": ("federated", "encrypt_snn", "vgg_serve", "vgg_train", "vgg_encrypt",
+                       "vgg_encrypt_snn", "conv_serve", "conv_train", "conv_encrypt",
+                       "conv_encrypt_snn"), "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
-                  "also": ("federated", "dp", "dp_federated"), "kernel": ("tent_rows_kernel",),
+                  "also": ("federated", "dp", "dp_federated", "vgg_train", "conv_train",
+                           "mnist", "conv_dp", "conv_dp_federated"),
+                  "kernel": ("tent_rows_kernel",),
                   "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
     # (PRIMIA_WARP_TWOPASS=0) or the affine ranges are not two-pass safe
@@ -278,31 +337,37 @@ KERNELS = {
                       "path": "train_twopass0", "kernel": ("tent_bilinear_kernel",),
                       "source": "primia_tpu_torch/csrc/tent.cu"},
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
-                 "also": ("encrypt_group",), "kernel": ("dcf_sign_kernel",),
+                 "also": ("encrypt_group", "vgg_encrypt", "conv_encrypt", "conv_group_encrypt"),
+                 "kernel": ("dcf_sign_kernel",),
                  "source": "primia_tpu_torch/csrc/dcf.cu"},
     # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
     # function's time counts each kernel named here (K7's second, reducing
     # pass included)
     "conv3x3_wgrad": {"replaces": "primia_tpu/ops/pallas_wgrad.py:122", "path": "train_optin",
-                      "also": ("dp_ghost_optin", "dp_micro_optin"),
+                      "also": ("dp_ghost_optin", "dp_micro_optin", "vgg_optin"),
                       "kernel": ("conv3x3_wgrad_kernel", "conv3x3_wgrad_reduce_kernel"),
                       "source": "primia_tpu_torch/csrc/wgrad.cu"},
     # the switched batch norm, three launches a direction: K8's sums, and the
     # finalize and elementwise passes that bn_train's custom_vjp leaves to
     # XLA on the TPU (their "replaces" names those lines)
     "bn_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:59", "path": "train_optin",
-                "kernel": ("bn_sums_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+                "also": ("conv_optin",), "kernel": ("bn_sums_kernel",),
+                "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_finalize": {"replaces": "primia_tpu/ops/pallas_bn.py:254", "path": "train_optin",
-                    "kernel": ("bn_finalize_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+                    "also": ("conv_optin",), "kernel": ("bn_finalize_kernel",),
+                    "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_apply": {"replaces": "primia_tpu/ops/pallas_bn.py:261", "path": "train_optin",
-                 "kernel": ("bn_apply_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+                 "also": ("conv_optin",), "kernel": ("bn_apply_kernel",),
+                 "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_grad_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:75", "path": "train_optin",
-                     "kernel": ("bn_grad_sums_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+                     "also": ("conv_optin",), "kernel": ("bn_grad_sums_kernel",),
+                     "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_grad_finalize": {"replaces": "primia_tpu/ops/pallas_bn.py:276", "path": "train_optin",
-                         "kernel": ("bn_grad_finalize_kernel",),
+                         "also": ("conv_optin",), "kernel": ("bn_grad_finalize_kernel",),
                          "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_dx": {"replaces": "primia_tpu/ops/pallas_bn.py:285", "path": "train_optin",
-              "kernel": ("bn_dx_kernel",), "source": "primia_tpu_torch/csrc/bn.cu"},
+              "also": ("conv_optin",), "kernel": ("bn_dx_kernel",),
+              "source": "primia_tpu_torch/csrc/bn.cu"},
     # K5 is on no path of either package (only the JAX package's own test
     # calls it), so its path is its own phase: one call at the canonical
     # train batch, as the augmentation's GaussNoise would make it
@@ -766,8 +831,10 @@ def phase_dcf(torch, seed, sm_max_mhz):
                 torch.tensor([5, 0, 0, 6, 8], dtype=torch.int32, device=dev))
     peak_int_ops = INT32_LANES * sm_max_mhz * 1e6
     rec = {"max_abs_err": 0.0}
-    for name, ops in (("802816", random_case(802_816)), ("300", random_case(300)),
-                      ("boundary", boundary)):
+    # the ResNet forward's largest call at batch 1, VGG-16's (its first
+    # ReLU: 64 x 224^2), a ragged one and the boundary points
+    for name, ops in (("802816", random_case(802_816)), ("3211264", random_case(3_211_264)),
+                      ("300", random_case(300)), ("boundary", boundary)):
         seeds, alpha, c, x = ops
         n = alpha.shape[0]
         got = cd.dcf_sign(*ops)
@@ -857,9 +924,10 @@ def phase_wgrad(torch, seed):
 
     records, worst = [], 0.0
     # the train step's two shapes, the DP ghost step's layer3 at batch 512,
+    # VGG-16's four at batch 64 (the 112^2 one twice the largest map so far),
     # and two ragged ones
     for B, ci, co, H, W in ((TRAIN_BATCH, 128, 128, 28, 28), (TRAIN_BATCH, 256, 256, 14, 14),
-                            (DP_BATCH, 256, 256, 14, 14), (3, 64, 512, 9, 11),
+                            (DP_BATCH, 256, 256, 14, 14), *VGG_K7_SHAPES, (3, 64, 512, 9, 11),
                             (2, 72, 136, 13, 28)):
         x, gy = operand(B, ci, H, W), operand(B, co, H, W)
         got = cw.conv3x3_wgrad(x, gy)
@@ -939,7 +1007,8 @@ def phase_bn(torch, seed):
 
     records = {n: [] for n in BN_LAUNCHES}
     worst = {n: 0.0 for n in BN_LAUNCHES}
-    for label, shape in [*BN_TRAIN_SHAPES.items(), ("ragged", (3, 24, 5, 7))]:
+    for label, shape in [*BN_TRAIN_SHAPES.items(), *CONV_BN_SHAPES.items(),
+                         ("ragged", (3, 24, 5, 7))]:
         x, gy = operand(shape, 1.0, 0.5), operand(shape, 0.1, 0.05)
         C = shape[1]
         n = x.numel() // C
@@ -1238,14 +1307,14 @@ def encrypt_ms_by_category(avgs, gemm_kernels):
     return cats
 
 
-def encrypted_cli(torch, data, weights, extra):
+def encrypted_cli(torch, data, weights, extra, n_images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH):
     """The inference CLI with --encrypted_inference on cuda, in-process, at
-    batch ENCRYPT_BATCH, the counters set to 0 just before and read just
-    after. Returns its predictions, launches and seconds."""
+    ``batch``, the counters set to 0 just before and read just after.
+    Returns its predictions, launches and seconds."""
     from primia_tpu_torch.cli import inference
 
     argv = ["--data_dir", str(data), "--model_weights", str(weights), "--batch_size",
-            str(ENCRYPT_BATCH), "--device", "cuda", "--encrypted_inference", *extra]
+            str(batch), "--device", "cuda", "--encrypted_inference", *extra]
     out, err = io.StringIO(), io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
@@ -1258,15 +1327,15 @@ def encrypted_cli(torch, data, weights, extra):
     check(json.loads(lines[0]) == json.loads(json.dumps(result))
           and lines[-1].startswith("Took "), "encrypted CLI output contract broken")
     preds = result["Inference Results"]
-    check(len(preds) == ENCRYPT_IMAGES, f"bad encrypted results: {str(preds)[:200]}")
-    return [preds[i] for i in range(ENCRYPT_IMAGES)], launches, secs
+    check(len(preds) == n_images, f"bad encrypted results: {str(preds)[:200]}")
+    return [preds[i] for i in range(n_images)], launches, secs
 
 
-def encrypted_case(torch, work, weights, subdir):
-    """ENCRYPT_IMAGES of the serve phase's DICOMs in their own directory,
-    the checkpoint's model on the card, its plain logits for them, their
-    limit (max(0.02, 1e-3 max |logit|), phase 13's) and where the plain
-    top-two margin exceeds it."""
+def encrypted_case(torch, work, weights, subdir, n_images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH):
+    """``n_images`` of the serve phase's DICOMs in their own directory, the
+    checkpoint's model on the card, its plain logits for them at ``batch``,
+    their limit (max(0.02, 1e-3 max |logit|), phase 13's) and where the
+    plain top-two margin exceeds it."""
     from primia_tpu_torch.data import PathDataset
     from primia_tpu_torch.nn import create_model
     from primia_tpu_torch.nn.jax_params import from_jax_tree
@@ -1275,7 +1344,7 @@ def encrypted_case(torch, work, weights, subdir):
 
     data = work / subdir
     data.mkdir()
-    for f in sorted((work / "images").glob("*.dcm"))[:ENCRYPT_IMAGES]:
+    for f in sorted((work / "images").glob("*.dcm"))[:n_images]:
         shutil.copy(f, data / f.name)
     state = ckpt.load_model(weights)
     args = state["args"]
@@ -1283,15 +1352,16 @@ def encrypted_case(torch, work, weights, subdir):
     msd = state["model_state_dict"]
     model = create_model(args, num_classes=3, device="cuda")
     model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
-    imgs, _ = PathDataset(data, channels=3).materialize(RES)
-    chunks = [imgs[i:i + ENCRYPT_BATCH] for i in range(0, ENCRYPT_IMAGES, ENCRYPT_BATCH)]
+    imgs, _ = PathDataset(data, channels=3 if args.pretrained else 1).materialize(RES)
+    chunks = [imgs[i:i + batch] for i in range(0, n_images, batch)]
     plain = build_predict_step(model, args, mean, std, "cuda")
     want = torch.cat([plain(c) for c in chunks]).float().cpu()
     limit = max(0.02, 1e-3 * float(want.abs().max()))
     top2 = want.topk(2, dim=1).values
     sure = (top2[:, 0] - top2[:, 1]) > limit
     return dict(weights=weights, data=data, args=args, mean=mean, std=std, model=model,
-                imgs=imgs, chunks=chunks, want=want, limit=limit, sure=sure)
+                imgs=imgs, chunks=chunks, want=want, limit=limit, sure=sure, n=n_images,
+                batch=batch)
 
 
 def check_encrypted(torch, phase, case, protocol, expect_per_forward, tile=None):
@@ -1302,9 +1372,9 @@ def check_encrypted(torch, phase, case, protocol, expect_per_forward, tile=None)
     from primia_tpu_torch.mpc.inference import build_encrypted_predict
 
     extra = ["--protocol", protocol] + ([] if tile is None else ["--mpc_batch_tile", str(tile)])
-    preds, launches, cli_s = encrypted_cli(torch, case["data"], case["weights"], extra)
-    forwards = ENCRYPT_IMAGES // ENCRYPT_BATCH * (1 if tile is None else
-                                                  -(-ENCRYPT_BATCH // tile))
+    preds, launches, cli_s = encrypted_cli(torch, case["data"], case["weights"], extra,
+                                           case["n"], case["batch"])
+    forwards = case["n"] // case["batch"] * (1 if tile is None else -(-case["batch"] // tile))
     expect = idle_launches(**{k: n * forwards for k, n in expect_per_forward.items()})
     check(launches == expect, f"{phase}: encrypted CLI ({protocol}, tile {tile}) launches "
           f"{launches}, expected {expect}")
@@ -1331,21 +1401,23 @@ def check_encrypted(torch, phase, case, protocol, expect_per_forward, tile=None)
     return launches, enc, cli_s
 
 
-def time_encrypted(torch, np, phase, protocol, enc, imgs, profile_out, tag):
-    """The encrypted predict at batch 1 and ENCRYPT_BATCH: p50/p75 over 5
-    batches after one warm-up, s per image and peak memory; then one batch
-    of each under the profiler: device busy ms, idle share against the
-    p50, device operations a forward, device ms by category (the table
-    of the full batch goes to ``profile_out`` with ``tag``)."""
+def time_encrypted(torch, np, phase, protocol, enc, imgs, profile_out, tag,
+                   batches=(1, ENCRYPT_BATCH), n_timed=5):
+    """The encrypted predict at each of ``batches``: p50/p75 over
+    ``n_timed`` batches after one warm-up, s per image and peak memory;
+    then one batch of each under the profiler: device busy ms, idle share
+    against the p50, device operations a forward, device ms by category
+    (the table of the last batch size goes to ``profile_out`` with
+    ``tag``)."""
     from torch.autograd import DeviceType
 
-    for B in (1, ENCRYPT_BATCH):
+    for B in batches:
         x = imgs[:B]
         enc(x)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         batch_ms = []
-        for _ in range(5):
+        for _ in range(n_timed):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             enc(x)
@@ -2171,7 +2243,7 @@ DP_FED_CONFIG = ROOT / "configs" / "torch" / "pneumonia-resnet-dp-federated.ini"
 DP_BATCH = 512
 DP_TRAIN_PER_CLASS = (342, 341, 341)  # 1,024 images: 2 steps at batch 512
 DP_FED_PER_CLASS = (171, 171, 170)  # 512 images a node: one step each
-DP_TIMED_STEPS, DP_WARMUP = 6, 2
+DP_TIMED_STEPS, DP_WARMUP = 3, 1
 DP_FED_TIMED_STEPS, DP_FED_TIMED_ROUNDS = 2, 2
 K7_PER_GHOST_STEP = 3  # layer3's three stride-1 256 -> 256 convs (T = 196, the gram form)
 DP_G1_BATCH = 64  # the microbatched step under PRIMIA_PALLAS_WGRAD=1, cut from 512
@@ -2578,6 +2650,499 @@ def phase_dp(torch, seed, work, profile_out):
             "dp_micro_optin": g1_launches["switched"], "dp_federated": fed_launches}
 
 
+# ---------------------------------------------------------------- slice 6a
+VGG_CONFIG = ROOT / "configs" / "torch" / "pneumonia-vgg.ini"
+CONV_CONFIG = ROOT / "configs" / "torch" / "pneumonia-conv.ini"
+MNIST_CONFIG = ROOT / "configs" / "torch" / "mnist.ini"
+CONV_DP_CONFIG = ROOT / "configs" / "torch" / "pneumonia-conv-dp.ini"
+CONV_DP_FED_CONFIG = ROOT / "configs" / "torch" / "pneumonia-conv-dp-federated.ini"
+VGG_BATCH, CONV_BATCH = 64, 4
+VGG_TIMED_STEPS, CONV_TIMED_STEPS = 12, 24
+# K7 on VGG-16: features.3-6 (128 -> 128 at 112^2, 128 -> 256 and 256 -> 256 at
+# 56^2): the ten convs with at least 128 channels in and out take
+# conv3x3_s1p1, and the JAX rule (pallas_wgrad.py:_bwd) keeps the library's
+# weight gradient where max(ci, co) = 512
+K7_PER_VGG_STEP = 4
+VGG_K7_SHAPES = ((VGG_BATCH, 128, 128, 112, 112), (VGG_BATCH, 128, 256, 56, 56),
+                 (VGG_BATCH, 256, 256, 56, 56))
+# SimpleConv@224's three batch norms at train batch 4: C = 8, 32, 128 after
+# pools 1, 2 and 4
+CONV_BN_SHAPES = {"conv_bn0": (CONV_BATCH, 8, 111, 111), "conv_bn1": (CONV_BATCH, 32, 54, 54),
+                  "conv_bn3": (CONV_BATCH, 128, 12, 12)}
+# comparisons a forward under fss: ReLUs + 2 rounds a 2x2 max pool
+SIGNS_VGG, SIGNS_CONV224, SIGNS_CONV28 = 15 + 5 * 2, 8 + 6 * 2, 8 + 3 * 2
+VGG_ENCRYPT_IMAGES = 4
+# live_head's (std, layers): VGG-16's whole classifier, SimpleConv's head
+VGG_HEAD, CONV_HEAD = (0.05, 3), (0.1, 1)
+MNIST_TRAIN, MNIST_TEST = 640, 100
+
+
+def quiet_model(create_model, args, **kw):
+    """``create_model`` without the warning of ``pretrained = yes`` with no
+    weights file (VGG-16 keeps its He init, as the JAX package's)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return create_model(args, num_classes=3, **kw)
+
+
+def cut_ini(work, src, cuts):
+    """``src`` with each (old, new) replaced, written under ``work``."""
+    text = src.read_text()
+    for old, new in cuts:
+        check(old in text, f"unexpected config {src}: no {old!r}")
+        text = text.replace(old, new)
+    ini = work / src.name
+    ini.write_text(text)
+    return ini
+
+
+def serve_family(torch, np, phase, args, model, weights, work, data, n_channels):
+    """The inference CLI on the serve phase's 64 DICOMs at batch 16 (CLAHE
+    once a batch), the card's logits for 4 images against the CPU's
+    predict step, and the predict step's p50 at batch 16."""
+    from primia_tpu_torch.cli import inference
+    from primia_tpu_torch.data import PathDataset
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.train.steps import build_predict_step
+
+    mean_std = (np.full(n_channels, 0.45), np.full(n_channels, 0.25))
+    result, out, cli_s, launches = run_cli(torch, inference, [
+        "--data_dir", str(data), "--model_weights", str(weights), "--batch_size", str(BATCH),
+        "--device", "cuda"], work, work / f"{phase}_serve_cli.log")
+    n_batches = -(-N_IMAGES // BATCH)
+    preds = result["Inference Results"]
+    check(len(preds) == N_IMAGES and set(preds.values()) <= {0, 1, 2},
+          f"{phase}: bad inference results {str(preds)[:200]}")
+    want = idle_launches(clahe=n_batches if args.clahe else 0)
+    check(launches == want, f"{phase}: serving launches {launches}, expected {want}")
+    imgs, _ = PathDataset(data, channels=n_channels).materialize(args.inference_resolution)
+    chunks = [imgs[i:i + BATCH] for i in range(0, N_IMAGES, BATCH)]
+    gpu = quiet_model(create_model, args, device="cuda")
+    gpu.load_state_dict(model.state_dict())
+    predict = build_predict_step(gpu, args, *mean_std, "cuda")
+    logits = predict(chunks[0]).float().cpu()
+    cpu = quiet_model(create_model, args, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    ref = build_predict_step(cpu, args, *mean_std, "cpu")(chunks[0][:4])
+    dl, scale = float((logits[:4] - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(logits).all()) and torch.equal(logits[:4].argmax(1), ref.argmax(1))
+          and dl <= 1e-3 * scale, f"{phase}: card vs CPU logits max |d| {dl}, max |logit| {scale}")
+    batch_ms = p50_ms(torch, np, lambda: predict(chunks[1]), 12)
+    say(phase, path="serve", cli_seconds=f"{cli_s:.4f}", launches=json.dumps(launches),
+        cpu_check="ok", max_abs_dlogit=dl, max_abs_logit=scale, batch=BATCH,
+        batch_ms_p50=f"{batch_ms:.4f}", img_per_s_p50=f"{BATCH / (batch_ms * 1e-3):.2f}")
+    return launches
+
+
+def train_family(torch, np, phase, ini, args, data_root, work, per_step):
+    """The train CLI for one epoch on ``data_root/train`` on cuda, counters
+    set to 0 just before and read just after (``per_step`` launches a
+    step). Returns the launches and the CLI's seconds."""
+    from primia_tpu_torch.cli import train as train_cli
+    from primia_tpu_torch.train import checkpoint as ckpt
+
+    n_train = sum(1 for _ in (data_root / "train").rglob("*.dcm"))
+    steps = -(-n_train // args.batch_size)
+    run_dir = work / f"{phase}_run"
+    run_dir.mkdir()
+    best, out, cli_s, launches = run_cli(torch, train_cli, [
+        "--config", str(ini), "--data_dir", str(data_root / "train"), "--device", "cuda"],
+        run_dir, work / f"{phase}_train_cli.log")
+    want = idle_launches(**{k: n * steps for k, n in per_step.items()})
+    check(launches == want, f"{phase}: train CLI launches {launches}, expected {want}")
+    finals = sorted((run_dir / "model_weights").glob("final_*.pt"))
+    check(len(finals) == 1 and np.isfinite(best), f"{phase}: train CLI: {finals}, best {best}")
+    state = ckpt.load_model(finals[0])
+    check(state["epoch"] == 1 and int(state["optim_state_dict"].step) == steps,
+          f"{phase}: final checkpoint has the wrong epoch or optimizer step")
+    say(phase, path="train", epochs=1, train_images=n_train, batch=args.batch_size, steps=steps,
+        cli_seconds=f"{cli_s:.4f}", launches=json.dumps(launches), best_mcc_percent=best)
+    return launches, out
+
+
+def family_steps(torch, args, data_root, seed, n_channels):
+    """(model factory, the loop's batches on the card, mean, std) of
+    ``data_root/train`` at ``args.batch_size``."""
+    from primia_tpu_torch.data import (BatchLoader, ImageFolderDataset, calc_mean_std,
+                                       to_device_resident)
+    from primia_tpu_torch.nn import create_model
+
+    dev = torch.device("cuda")
+    imgs, labels = ImageFolderDataset(data_root / "train", channels=n_channels).materialize(
+        args.inference_resolution)
+    mean, std = calc_mean_std(imgs)
+    batches = list(BatchLoader(to_device_resident(imgs, dev), labels, args.batch_size,
+                               seed=seed, pad_final=False))
+
+    def fresh(a):
+        torch.manual_seed(seed)
+        return quiet_model(create_model, a, device="cpu").to(dev)
+
+    return fresh, batches, mean, std
+
+
+def stepper(torch, step, batches, seed, lr=1e-4):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    full = [b for b in batches if bool(b.mask.all())]
+
+    def run(i):
+        b = full[i % len(full)]
+        return step(gen, b.images, b.labels, b.mask, lr)
+
+    return run
+
+
+def switched_against_default(torch, np, phase, args, fresh, batches, mean, std, switch,
+                             per_step, profile_out, steps, compare, head):
+    """Two steps under ``switch`` with their exact launches, ``steps`` timed
+    steps switched and default in one call, and one bfloat16 step with
+    augmentation and mixup off, switched against default from the same
+    weights (:func:`live_head` ``head``) and batch: the loss within 1e-2
+    relative, the gradients of the parameters whose names start with one of
+    ``compare`` within 2e-2 of their max |g|, and any BN running statistics
+    within 2e-2 of their max.
+    (Hidden layers' gradients behind a ReLU are not compared where the
+    switch moves the forward's last bits: a unit near 0 that flips moves
+    a whole row of the next weight's gradient.)"""
+    from primia_tpu_torch.train.optim import make_optimizer
+    from primia_tpu_torch.train.steps import build_train_step
+
+    timed = {}
+    for label, names in (("default", ()), ("switched", (switch,))):
+        with switches(*names):
+            model = fresh(args)
+            run = stepper(torch, build_train_step(model, make_optimizer(args, model), args,
+                                                  mean, std, device="cuda"), batches, seed=1)
+            if names:
+                run(0)
+                reset_launches()
+                for i in range(2):
+                    run(i)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                want = idle_launches(**{k: 2 * n for k, n in per_step.items()})
+                check(launches == want, f"{phase}: switched steps launch {launches}, "
+                      f"expected {want}")
+            timed[label] = time_steps(torch, np, run, f"{phase}.{label}", profile_out,
+                                      f".{phase}_{label}", batch=args.batch_size, steps=steps,
+                                      warmup=2, n_prof=2)
+    say(phase, switch=switch,
+        switched_over_default_p50=f"{timed['switched'][0] / timed['default'][0]:.4f}")
+    quiet = dataclasses.replace(args)
+    quiet.rotation = quiet.translate = quiet.scale = quiet.shear = 0.0
+    quiet.albu_prob = quiet.noise_prob = 0.0
+    quiet.clahe = quiet.mixup = quiet.elastic = False
+    b = batches[0]
+    res = {}
+    for label, names in (("default", ()), ("switched", (switch,))):
+        with switches(*names):
+            model = live_head(torch, fresh(quiet), *head)
+            rec = _GradRecorder(model)
+            loss = float(build_train_step(model, rec, quiet, mean, std, device="cuda")(
+                torch.Generator(device="cuda").manual_seed(0), b.images, b.labels, b.mask, 1e-4))
+            seen = {n: g for n, g in rec.grads.items() if n.startswith(compare)}
+            seen.update({n: t.detach().float().cpu() for n, t in model.named_buffers()
+                         if n.endswith(("running_mean", "running_var"))})
+            res[label] = (loss, seen)
+    (ls, gs), (ld, gd) = res["switched"], res["default"]
+    gap, leaf, ok = leaf_gap(torch, gs, gd, 2e-2)
+    check(abs(ls - ld) <= 1e-2 * abs(ld) and ok, f"{phase}: switched vs default bf16 step: "
+          f"loss {ls} vs {ld}, {gap} of {leaf}'s max")
+    say(phase, switched_vs_default="ok", loss_switched=ls, loss_default=ld,
+        max_gap_of_leaf_max=gap, leaf=leaf, limit=2e-2)
+    return launches
+
+
+def live_head(torch, model, std, layers=1):
+    """The last ``layers`` classifier linears' weights N(0, ``std``): a
+    group-norm model's zero head leaves every logit 0, VGG-16's N(0, 0.01)
+    init (all three) leaves them near 1e-3, and a comparison of logits or
+    of a loss at ln 3 then shows nothing."""
+    with torch.no_grad():
+        for lin in model.classifier[-layers:]:
+            lin.weight.normal_(0, std)
+    return model
+
+
+def f32_step_card_vs_cpu(torch, np, phase, args, n_channels, compare, seed, head):
+    """One float32 step, augmentation and mixup off, on uniform noise images
+    (flat X-rays tie in the max pools, which the card and the CPU break
+    apart): the card against the CPU from the same weights, the loss within
+    1e-4 relative and the parameters named by ``compare`` within 1e-3 of
+    their max |g|."""
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.train.steps import build_train_step
+
+    f32 = dataclasses.replace(args)
+    f32.compute_dtype = "float32"
+    f32.rotation = f32.translate = f32.scale = f32.shear = 0.0
+    f32.albu_prob = f32.noise_prob = 0.0
+    f32.clahe = f32.mixup = f32.elastic = False
+    torch.manual_seed(seed)
+    sd = live_head(torch, quiet_model(create_model, f32, device="cpu"), *head).state_dict()
+    R = args.inference_resolution
+    x = np.random.default_rng(seed).integers(0, 256, (2, R, R, n_channels), dtype=np.uint8)
+    y, m = np.array([0, 2], np.int32), np.ones(2, np.float32)
+    mean, std = np.full(n_channels, 0.45), np.full(n_channels, 0.25)
+    res = {}
+    for where in ("cuda", "cpu"):
+        model = quiet_model(create_model, f32, device=where)
+        model.load_state_dict(sd)
+        rec = _GradRecorder(model)
+        loss = float(build_train_step(model, rec, f32, mean, std, device=where)(
+            torch.Generator(device=where).manual_seed(0), x, y, m, 1e-4))
+        res[where] = (loss, {n: g for n, g in rec.grads.items() if n.startswith(compare)})
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    gap, leaf, ok = leaf_gap(torch, gg, gc, 1e-3)
+    rel = abs(lg - lc) / abs(lc)
+    check(rel <= 1e-4 and ok, f"{phase}: card vs CPU f32 step: loss {lg} vs {lc}, {gap} of "
+          f"{leaf}'s max")
+    say(phase, cpu_check="ok", loss_rel_diff=rel, max_gap_of_leaf_max=gap, leaf=leaf)
+
+
+def family_checkpoint(torch, np, args, work, name, seed, n_channels, head):
+    """Seeded weights of ``args``'s model, saved as a checkpoint, with
+    :func:`live_head` ``(std, layers)`` = ``head``."""
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.train import checkpoint as ckpt
+
+    torch.manual_seed(seed)
+    model = live_head(torch, quiet_model(create_model, args, device="cpu"), *head)
+    weights = work / f"{name}.pt"
+    ckpt.save_model(weights, epoch=0, model=model, args=args,
+                    val_mean_std=(np.full(n_channels, 0.45), np.full(n_channels, 0.25)))
+    return model, weights
+
+
+def encrypt_family(torch, np, phase, work, weights, protocols, signs, clahe, n_images, batch,
+                   tile, profile_out):
+    """The encrypted CLI under each protocol with its exact launches (K4
+    ``signs`` a forward under fss, none under snn; CLAHE once a forward
+    tile's batch), its logits against the plain step, and the predict
+    timed at ``batch``. Returns the launches by protocol."""
+    case = encrypted_case(torch, work, weights, f"{phase}_encrypt_images", n_images, batch)
+    out = {}
+    for protocol in protocols:
+        per = {"dcf_sign": signs} if protocol == "fss" else {}
+        if clahe:
+            per["clahe"] = 1 if tile is None else -(-batch // tile)
+        launches, enc, _ = check_encrypted(torch, phase, case, protocol, per, tile)
+        time_encrypted(torch, np, phase, protocol, enc, case["imgs"], profile_out,
+                       f".{phase}_{protocol}", batches=(batch,), n_timed=3)
+        out[protocol] = launches
+    return out
+
+
+def phase_vgg(torch, seed, work, profile_out, ctx):
+    """Phase 17, slice 6a: VGG-16 of configs/torch/pneumonia-vgg.ini (224 px,
+    3 channels, CLAHE, mixup, batch 64; pretrained = yes with no weights
+    file keeps the He init, as the JAX package does): served (CLAHE once a
+    batch), the train CLI for one epoch on phase 7's 600 DICOMs (K1 four
+    times and CLAHE once a step), timed steps at batch 64, the steps under
+    PRIMIA_PALLAS_WGRAD=1 (K7 four times a step) against the default ones,
+    one f32 step card against CPU, and served encrypted at batch 1 with
+    --mpc_batch_tile 1 under fss (K4 25 times a forward) and snn."""
+    import numpy as np
+
+    from primia_tpu_torch.config import Arguments
+
+    ini = cut_ini(work, VGG_CONFIG, (("epochs = 40", "epochs = 1"),))
+    args = Arguments.from_ini(ini)
+    check(args.model == "vgg16" and args.pretrained and args.clahe and args.mixup
+          and args.batch_size == VGG_BATCH and args.inference_resolution == RES,
+          f"unexpected VGG config: {VGG_CONFIG}")
+    os.environ.pop("PRIMIA_PRETRAINED", None)
+    model, weights = family_checkpoint(torch, np, args, work, "vgg16", seed + 11, 3,
+                                       VGG_HEAD)
+    say("vgg", config=VGG_CONFIG.relative_to(ROOT), parameters=sum(
+        p.numel() for p in model.parameters()), weights=weights.relative_to(ROOT))
+    by_path = {"vgg_serve": serve_family(torch, np, "vgg", args, model, weights, work,
+                                         work / "images", 3)}
+    by_path["vgg_train"], _ = train_family(torch, np, "vgg", ini, args, ctx["root"], work,
+                                           {"tent_rows": 4, "clahe": 1})
+    fresh, batches, mean, std = family_steps(torch, args, ctx["root"], seed, 3)
+    by_path["vgg_optin"] = switched_against_default(
+        torch, np, "vgg", args, fresh, batches, mean, std, "PRIMIA_PALLAS_WGRAD",
+        {"tent_rows": 4, "clahe": 1, "conv3x3_wgrad": K7_PER_VGG_STEP}, profile_out,
+        VGG_TIMED_STEPS, ("features.", "classifier.2."), VGG_HEAD)
+    f32_step_card_vs_cpu(torch, np, "vgg", args, 3, ("classifier.",), seed, VGG_HEAD)
+    enc = encrypt_family(torch, np, "vgg_encrypt", work, weights, ("fss", "snn"), SIGNS_VGG,
+                         True, VGG_ENCRYPT_IMAGES, 1, 1, profile_out)
+    by_path["vgg_encrypt"], by_path["vgg_encrypt_snn"] = enc["fss"], enc["snn"]
+    return by_path
+
+
+def write_mnist(np, root, n_train, n_test, seed):
+    """A synthetic 10-class MNIST in IDX files: each digit a bright square
+    at its own place on a noisy field."""
+    from primia_tpu_torch.data.mnist import write_idx
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    for split, n in (("train", n_train), ("t10k", n_test)):
+        labels = (np.arange(n) % 10).astype(np.uint8)
+        imgs = rng.integers(0, 60, (n, 28, 28), dtype=np.uint8)
+        for i, d in enumerate(labels):
+            r, c = 2 + 5 * (d // 5), 2 + 5 * (d % 5)
+            imgs[i, r:r + 8, c:c + 8] = 255
+        write_idx(root / f"{split}-images-idx3-ubyte", imgs)
+        write_idx(root / f"{split}-labels-idx1-ubyte", labels)
+
+
+def phase_simpleconv(torch, seed, work, profile_out, ctx):
+    """Phase 18, slice 6a: SimpleConv@224 of configs/torch/pneumonia-conv.ini
+    (1 channel, batch norm, CLAHE, mixup, batch 4): served, the train CLI
+    for one epoch on phase 7's DICOMs, timed steps, the steps under
+    PRIMIA_PALLAS_BN=1 (each of the six BN launches 3 times a step) against
+    the default ones, one f32 step card against CPU, served encrypted at
+    batch 4 under fss (K4 20 times a forward) and snn; then mnist.ini
+    (SimpleConv@28) through ``--data_dir mnist`` on a synthetic IDX set
+    under ``$MNIST_DIR`` for one epoch (K1 twice a step)."""
+    import numpy as np
+
+    from primia_tpu_torch.config import Arguments
+
+    ini = cut_ini(work, CONV_CONFIG, (("epochs = 1", "epochs = 1"),))
+    args = Arguments.from_ini(ini)
+    check(args.model == "simpleconv" and not args.pretrained and args.clahe and args.mixup
+          and args.batch_size == CONV_BATCH and args.train_resolution == RES
+          and args.normalization == "batch", f"unexpected SimpleConv config: {CONV_CONFIG}")
+    model, weights = family_checkpoint(torch, np, args, work, "simpleconv224", seed + 12, 1,
+                                       CONV_HEAD)
+    say("simpleconv", config=CONV_CONFIG.relative_to(ROOT), parameters=sum(
+        p.numel() for p in model.parameters()), weights=weights.relative_to(ROOT))
+    by_path = {"conv_serve": serve_family(torch, np, "simpleconv", args, model, weights, work,
+                                          work / "images", 1)}
+    by_path["conv_train"], _ = train_family(torch, np, "simpleconv", ini, args, ctx["root"],
+                                            work, {"tent_rows": 4, "clahe": 1})
+    fresh, batches, mean, std = family_steps(torch, args, ctx["root"], seed, 1)
+    per_bn = {k: len(CONV_BN_SHAPES) for k in BN_LAUNCHES}
+    by_path["conv_optin"] = switched_against_default(
+        torch, np, "simpleconv", args, fresh, batches, mean, std, "PRIMIA_PALLAS_BN",
+        {"tent_rows": 4, "clahe": 1, **per_bn}, profile_out, CONV_TIMED_STEPS,
+        ("classifier.2.",), CONV_HEAD)
+    f32_step_card_vs_cpu(torch, np, "simpleconv", args, 1, ("classifier.",), seed, CONV_HEAD)
+    enc = encrypt_family(torch, np, "conv_encrypt", work, weights, ("fss", "snn"),
+                         SIGNS_CONV224, True, ENCRYPT_IMAGES, ENCRYPT_BATCH, None, profile_out)
+    by_path["conv_encrypt"], by_path["conv_encrypt_snn"] = enc["fss"], enc["snn"]
+
+    # MNIST: SimpleConv@28 through --data_dir mnist
+    from primia_tpu_torch.cli import train as train_cli
+
+    write_mnist(np, work / "mnist_idx", MNIST_TRAIN, MNIST_TEST, seed + 13)
+    mini = cut_ini(work, MNIST_CONFIG, (("epochs = 10", "epochs = 1"),))
+    margs = Arguments.from_ini(mini)
+    check(margs.model == "simpleconv" and margs.train_resolution == 28 and not margs.clahe,
+          f"unexpected MNIST config: {MNIST_CONFIG}")
+    steps = -(-MNIST_TRAIN // margs.batch_size)
+    run_dir = work / "mnist_run"
+    run_dir.mkdir()
+    os.environ["MNIST_DIR"] = str(work / "mnist_idx")
+    try:
+        best, out, cli_s, launches = run_cli(torch, train_cli, [
+            "--config", str(mini), "--data_dir", "mnist", "--device", "cuda"], run_dir,
+            work / "mnist_train_cli.log")
+    finally:
+        os.environ.pop("MNIST_DIR")
+    want = idle_launches(tent_rows=2 * steps)
+    check(launches == want and np.isfinite(best), f"MNIST train CLI launches {launches}, "
+          f"expected {want}; best {best}")
+    check(all(f"│ {d} " in out for d in "0123456789"), "MNIST stats table lacks a digit")
+    say("mnist", config=MNIST_CONFIG.relative_to(ROOT), train_digits=MNIST_TRAIN,
+        test_digits=MNIST_TEST, batch=margs.batch_size, steps=steps, cli_seconds=f"{cli_s:.4f}",
+        launches=json.dumps(launches), best_mcc_percent=best)
+    by_path["mnist"] = launches
+    return by_path
+
+
+def phase_conv_dp(torch, seed, work, profile_out):
+    """Phase 19, slice 6a: the DP recipe that trains from scratch,
+    configs/torch/pneumonia-conv-dp.ini (SimpleConv@224 with group norm,
+    batch 512, K = 4, sigma 2.0, SGD, EMA 0.99; epochs 60 -> 1 and
+    test_interval 2 -> 1) on phase 16's 1,024 DICOMs: the train CLI (2 steps,
+    K1 twice a step over the 2,048 views), its epsilon line, 2 timed
+    microbatched steps; its group-norm model with an N(0, 0.1) head served
+    encrypted at batch 4 under fss (K4 20 times a forward) and snn; then
+    configs/torch/pneumonia-conv-dp-federated.ini (K = 16, sigma 3.0) with
+    --train_federated on phase 16's 3 nodes of 512: one step a node and one
+    secure aggregation (K1 twice a node step)."""
+    import numpy as np
+
+    from primia_tpu_torch.cli import train as train_cli
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.train import dp
+    from primia_tpu_torch.train.optim import make_optimizer
+
+    root = work / "dp"
+    ini = cut_ini(work, CONV_DP_CONFIG, (("epochs = 60", "epochs = 1"),
+                                         ("test_interval = 2", "test_interval = 1")))
+    args = Arguments.from_ini(ini)
+    K = args.augment_multiplicity
+    check(args.model == "simpleconv" and args.normalization == "group" and K == 4
+          and args.batch_size == DP_BATCH and args.differentially_private
+          and args.noise_multiplier == 2.0 and args.parameter_ema == 0.99,
+          f"unexpected conv DP config: {CONV_DP_CONFIG}")
+    n_train = sum(DP_TRAIN_PER_CLASS)
+    steps = -(-n_train // DP_BATCH)
+    run_dir = work / "conv_dp_run"
+    run_dir.mkdir()
+    _, out, cli_s, launches = run_cli(torch, train_cli, [
+        "--config", str(ini), "--data_dir", str(root / "train"), "--device", "cuda"],
+        run_dir, work / "conv_dp_cli.log")
+    want = idle_launches(tent_rows=2 * steps)
+    check(launches == want, f"conv DP CLI launches {launches}, expected {want}")
+    eps, alpha = dp.rdp_epsilon(noise_multiplier=args.noise_multiplier,
+                                sample_rate=DP_BATCH / n_train, steps=steps,
+                                delta=args.target_delta)
+    line = eps_line(out)
+    check(line == f"(eps = {eps:.2f}, delta = {args.target_delta}) at alpha = {alpha}",
+          f"conv DP epsilon line {line!r}")
+    say("conv_dp", config=CONV_DP_CONFIG.relative_to(ROOT), train_images=n_train,
+        batch=DP_BATCH, augment_multiplicity=K, steps=steps, cli_seconds=f"{cli_s:.4f}",
+        launches=json.dumps(launches), epsilon_line=json.dumps(line))
+    fresh, batches, mean, std = family_steps(torch, args, root, seed, 1)
+    model = fresh(args)
+    step = dp.select_train_step(model, make_optimizer(args, model), args, mean, std, None,
+                                "cuda")
+    p50 = time_steps(torch, np, stepper(torch, step, batches, seed, args.lr), "conv_dp",
+                     profile_out, ".conv_dp", batch=DP_BATCH, steps=2, warmup=1, n_prof=1,
+                     augment_multiplicity=K)[0]
+    say("conv_dp", examples_per_s_p50=f"{DP_BATCH / (p50 * 1e-3):.2f}",
+        views_per_s_p50=f"{K * DP_BATCH / (p50 * 1e-3):.2f}")
+
+    _, weights = family_checkpoint(torch, np, args, work, "simpleconv224-group", seed + 14, 1,
+                                   CONV_HEAD)
+    enc = encrypt_family(torch, np, "conv_group_encrypt", work, weights, ("fss", "snn"),
+                         SIGNS_CONV224, False, ENCRYPT_IMAGES, ENCRYPT_BATCH, None, profile_out)
+
+    froot = work / "dp_federated"
+    fini = cut_ini(work, CONV_DP_FED_CONFIG, (("epochs = 60", "epochs = 1"),
+                                              ("test_interval = 2", "test_interval = 1")))
+    fargs = Arguments.from_ini(fini, cmd_args=argparse.Namespace(data_dir=str(froot),
+                                                                 train_federated=True))
+    check(fargs.model == "simpleconv" and fargs.augment_multiplicity == 16
+          and fargs.sync_every_n_batch == 1 and fargs.batch_size == DP_BATCH,
+          f"unexpected conv federated DP config: {CONV_DP_FED_CONFIG}")
+    frun = work / "conv_dp_federated_run"
+    frun.mkdir()
+    (frun / "data").symlink_to(froot, target_is_directory=True)
+    _, out, fcli_s, flaunches = run_cli(torch, train_cli, [
+        "--config", str(fini), "--data_dir", str(frun / "data"), "--train_federated",
+        "--device", "cuda"], frun, work / "conv_dp_federated_cli.log")
+    want = idle_launches(tent_rows=2 * 3)
+    check(flaunches == want, f"conv federated DP CLI launches {flaunches}, expected {want}")
+    fline = eps_line(out)
+    check("[worst node: " in fline, f"conv federated epsilon line {fline!r}")
+    say("conv_dp_federated", config=CONV_DP_FED_CONFIG.relative_to(ROOT), nodes=3,
+        batch_per_node=DP_BATCH, augment_multiplicity=fargs.augment_multiplicity,
+        cli_seconds=f"{fcli_s:.4f}", launches=json.dumps(flaunches),
+        epsilon_line=json.dumps(fline))
+    return {"conv_dp": launches, "conv_group_encrypt": enc["fss"],
+            "conv_dp_federated": flaunches}
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
@@ -2622,25 +3187,48 @@ def main(argv=None) -> int:
         say("device", name=torch.cuda.get_device_name(0),
             capability=torch.cuda.get_device_capability(0), torch=torch.__version__,
             cuda=torch.version.cuda, sm_clock_max_mhz=sm_max_mhz, sm_clock_mhz=sm_mhz)
+        seconds, t0 = {}, time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            t0 = time.perf_counter()
+
         phase_build()
+        lap("build")
         rec = {"clahe": phase_kernels(torch, opts.seed)}
         rec.update(phase_tent(torch, opts.seed))
+        lap("clahe_tent")
         rec["dcf_sign"] = phase_dcf(torch, opts.seed, sm_max_mhz)
         rec["conv3x3_wgrad"] = phase_wgrad(torch, opts.seed)
         rec.update(phase_bn(torch, opts.seed))
         rec["gaussian_noise"], noise_launches = phase_noise(torch, opts.seed, sm_max_mhz)
         phase_ring(torch, opts.seed)
+        lap("dcf_wgrad_bn_noise_ring")
         profile_out = opts.profile_out.resolve()
         by_path = {"noise": noise_launches,
                    "serve": phase_serve(torch, opts.seed, work, profile_out)}
+        lap("serve")
         by_path["encrypt"] = phase_encrypt(torch, opts.seed, work, profile_out)
         by_path["encrypt_snn"] = phase_encrypt_snn(torch, opts.seed, work, profile_out)
         by_path["encrypt_group"] = phase_encrypt_group(torch, opts.seed, work, profile_out)
+        lap("encrypt")
         by_path["train"], by_path["train_twopass0"], ctx = phase_train(torch, opts.seed, work,
                                                                        profile_out)
+        lap("train")
         by_path["train_optin"] = phase_train_optin(torch, opts.seed, work, profile_out, ctx)
+        lap("train_optin")
         by_path["federated"] = phase_federated(torch, opts.seed, work, profile_out)
+        lap("federated")
         by_path.update(phase_dp(torch, opts.seed, work, profile_out))
+        lap("dp")
+        by_path.update(phase_vgg(torch, opts.seed, work, profile_out, ctx))
+        lap("vgg")
+        by_path.update(phase_simpleconv(torch, opts.seed, work, profile_out, ctx))
+        lap("simpleconv")
+        by_path.update(phase_conv_dp(torch, opts.seed, work, profile_out))
+        lap("conv_dp")
+        say("seconds", **seconds, total=round(sum(seconds.values()), 1))
         for name, meta in KERNELS.items():
             for path in (meta["path"], *meta.get("also", ())):
                 check(by_path[path][name] > 0,

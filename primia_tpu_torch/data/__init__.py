@@ -1,8 +1,8 @@
 """Data layer: host-side ingest and batching.
 
 See ``.datasets`` (decode/scan), ``.dicom`` (self-contained DICOM
-parser) and ``.loader`` (fixed-shape batches, device upload, dataset
-statistics).
+parser), ``.loader`` (fixed-shape batches, device upload, dataset
+statistics) and ``.mnist`` (local IDX files).
 """
 
 from primia_tpu_torch.data.datasets import (  # noqa: F401
@@ -22,3 +22,4 @@ from primia_tpu_torch.data.loader import (  # noqa: F401
     device_prefetch,
     to_device_resident,
 )
+from primia_tpu_torch.data.mnist import load_mnist, label_subset, resize_to  # noqa: F401

@@ -14,8 +14,9 @@ W)`` and OIHW conv weights:
 - avg_pool: the int64 window sum times ``encode(1 / w^2)``, truncated;
 - affine: folded inference batch norm, one Beaver product;
 - batch_norm and group_norm: private statistics, the Newton inverse square
-  root of ``mpc/functions.py``; group norm's statistics per example and
-  group, its divisions by the group's count exact
+  root of ``mpc/functions.py`` (ten steps, where the JAX package takes
+  seven: :data:`NORM_RSQRT_ITERATIONS`); group norm's statistics per
+  example and group, its divisions by the group's count exact
   (``functions.div_public_int``, a deviation from the JAX package's
   16-bit ``encode(1 / n)``).
 
@@ -39,6 +40,13 @@ from primia_tpu_torch.mpc.shares import AShare
 # Ring padding of max pooling: decodes to -2^14 at 16 fractional bits,
 # far below any activation but inside the 32-bit comparison domain.
 _PAD_NEG = -(1 << 30)
+
+# Newton steps of the private norms' rsqrt(var + eps). From its start of
+# about 2 at small x, each step grows y by 1.5x until x y^2 nears 1, so
+# seven (the JAX package's) reach rsqrt only for x >= ~1e-2; ten reach it
+# down to 1e-3. SimpleConv@224's first group norm (one channel a group)
+# sees variances near 3e-3 on X-rays, where seven steps leave rsqrt 5% low.
+NORM_RSQRT_ITERATIONS = 10
 
 
 def check_protocol(protocol: str) -> None:
@@ -119,7 +127,7 @@ class MpcEngine:
         alternative to the offline fold (:meth:`affine`) when the
         statistics are secret."""
         inv_std = Fn.inverse_sqrt(self.ctx, S.add_public(var, int(fixed.encode(
-            eps, self.ctx.frac_bits))))
+            eps, self.ctx.frac_bits))), iterations=NORM_RSQRT_ITERATIONS)
         scale = self._mul(weight, inv_std)
         y = self._mul(S.sub(x, self._per_channel(mean, x)), self._per_channel(scale, x))
         return self.bias_add(y, bias)
@@ -131,8 +139,9 @@ class MpcEngine:
         then the channelwise affine with the shared gamma and beta. The
         group sums are local; the mean and the variance divide by the
         public count n = (C / G) H W exactly (``functions.div_public_int``);
-        one Beaver square; rsqrt(var + eps) by Newton
-        (``functions.inverse_sqrt``, for var + eps in ~[1e-2, 200]); one
+        one Beaver square; rsqrt(var + eps) by :data:`NORM_RSQRT_ITERATIONS`
+        Newton steps (``functions.inverse_sqrt``: var + eps in ~[1e-3, 200];
+        the JAX package takes 7, for ~[1e-2, 200]); one
         product with x - mean. NCHW groups are ``(B, G, C/G * H * W)``: group
         g holds channels g C/G ... (g + 1) C/G - 1, as the JAX package's
         NHWC ``(B, HW, G, C/G)``."""
@@ -147,7 +156,7 @@ class MpcEngine:
         sq = self._mul(xc, xc)
         var = Fn.div_public_int(self.ctx, AShare(sq.data.sum(-1, keepdim=True)), n)
         inv = Fn.inverse_sqrt(self.ctx, S.add_public(var, int(fixed.encode(
-            eps, self.ctx.frac_bits))))
+            eps, self.ctx.frac_bits))), iterations=NORM_RSQRT_ITERATIONS)
         xhat = self._mul(xc, AShare(inv.data.expand(xg.shape)))
         return self.affine(AShare(xhat.data.reshape(x.data.shape)), gamma, beta)
 

@@ -1,4 +1,4 @@
-"""Encrypted (SMPC) inference: the ResNet forward over secret shares.
+"""Encrypted (SMPC) inference: the model's forward over secret shares.
 
 Port of ``primia_tpu/mpc/inference.py``. The model owner folds batch norm
 into a channelwise affine (``nn/core.py:bn_fold``, float32), keeps group
@@ -13,9 +13,16 @@ default, or the FSS comparison on kernel K4); only the logits are
 revealed. With max pooling the stem pools before its ReLU (they commute),
 which quarters the private ReLU's elements, as the reference does.
 
-The port's ``ResNet`` is an ``nn.Module`` whose ``forward`` is plaintext;
-the share-space forward here walks its children in the JAX order
-(``primia_tpu/nn/resnet.py:resnet_forward``).
+The port's models are ``nn.Module``s whose ``forward`` is plaintext; the
+share-space forwards here walk their children in the JAX order, one a
+family, as the JAX package runs its ``forward`` with ``E = MpcEngine``:
+``resnet_forward`` (``primia_tpu/nn/resnet.py``), ``vgg_forward``
+(``nn/vgg.py``: conv, bias and ReLU, 2x2 pools, the ``input // 32`` head,
+the classifier; no dropout) and ``simpleconv_forward``
+(``nn/simpleconv.py``: valid convs with biases, each resolution's pools,
+folded batch norm or private group norm at 224 px). The pool<->ReLU swap
+is ResNet's stem's alone: the JAX package's VGG deletes the flag and
+SimpleConv ignores it.
 
 Random streams: the model owner's, and per call of the predict function
 and per tile the data owner's and the dealer's, each a ``torch.Generator``
@@ -40,6 +47,8 @@ from primia_tpu_torch.mpc.engine import (MpcContext, MpcEngine, check_protocol,
                                          encode_and_share, reveal_and_decode)
 from primia_tpu_torch.mpc.shares import AShare
 from primia_tpu_torch.nn.core import Conv, Norm, bn_fold
+from primia_tpu_torch.nn.simpleconv import SimpleConv
+from primia_tpu_torch.nn.vgg import VGG
 from primia_tpu_torch.ops.image import clahe
 from primia_tpu_torch.ops.numerics import div
 
@@ -48,15 +57,18 @@ _MODEL, _DATA, _DEALER = 0, 1, 2
 
 def folded_weights(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's weights as its owner shares them, by module name: conv
-    ``weight``; batch norm folded to ``scale`` and ``offset``; group norm's
-    own ``weight`` and ``bias`` (gamma and beta: its statistics depend on
-    the input, so the engine normalises privately); the fc's ``weight`` and
-    ``bias``. All float32."""
+    ``weight`` and, where the conv has one, ``bias``; batch norm folded to
+    ``scale`` and ``offset``; group norm's own ``weight`` and ``bias``
+    (gamma and beta: its statistics depend on the input, so the engine
+    normalises privately); each linear's ``weight`` and ``bias``. All
+    float32."""
     out: Dict[str, torch.Tensor] = {}
     for name, m in model.named_modules():
         pre = f"{name}." if name else ""
         if isinstance(m, Conv):
             out[pre + "weight"] = m.weight.detach().float()
+            if m.bias is not None:
+                out[pre + "bias"] = m.bias.detach().float()
         elif isinstance(m, Norm) and m.kind == "group":
             out[pre + "weight"] = m.weight.detach().float()
             out[pre + "bias"] = m.bias.detach().float()
@@ -71,7 +83,28 @@ def folded_weights(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _conv(E: MpcEngine, P: Dict[str, AShare], conv: Conv, name: str, x: AShare) -> AShare:
-    return E.conv2d(x, P[name + ".weight"], conv.stride, conv.padding)
+    """The conv, then its bias where it has one (``E.bias_add``)."""
+    y = E.conv2d(x, P[name + ".weight"], conv.stride, conv.padding)
+    return y if conv.bias is None else E.bias_add(y, P[name + ".bias"])
+
+
+def _pool(E: MpcEngine, model: nn.Module, x: AShare, window: int, stride: int,
+          padding: int = 0) -> AShare:
+    """The model's pooling (max: tournament rounds of comparisons; avg: a
+    public division)."""
+    if model.pooling == "max":
+        return E.max_pool(x, window=window, stride=stride, padding=padding)
+    return E.avg_pool(x, window=window, stride=stride, padding=padding)
+
+
+def _classifier(E: MpcEngine, P: Dict[str, AShare], x: AShare) -> AShare:
+    """VGG's and SimpleConv's head: three linears, a ReLU after the first
+    two."""
+    for i in range(3):
+        x = E.linear(x, P[f"classifier.{i}.weight"], P[f"classifier.{i}.bias"])
+        if i < 2:
+            x = E.relu(x)
+    return x
 
 
 def _norm(E: MpcEngine, P: Dict[str, AShare], norm: Norm, name: str, x: AShare) -> AShare:
@@ -103,9 +136,7 @@ def resnet_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: ASha
     out = _norm(E, P, model.bn1, "bn1", _conv(E, P, model.conv1, "conv1", x))
 
     def stem_pool(t):
-        if model.pooling == "max":
-            return E.max_pool(t, window=3, stride=2, padding=1)
-        return E.avg_pool(t, window=3, stride=2, padding=1)
+        return _pool(E, model, t, 3, 2, 1)
 
     out = E.relu(stem_pool(out)) if swap_pool_relu else stem_pool(E.relu(out))
     for li in range(model.num_layers):
@@ -114,6 +145,59 @@ def resnet_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: ASha
     win = model.input_size // 32
     out = E.flatten(E.avg_pool(out, window=win, stride=win))
     return E.linear(out, P["fc.weight"], P["fc.bias"])
+
+
+def vgg_forward(E: MpcEngine, P: Dict[str, AShare], model: VGG, x: AShare) -> AShare:
+    """``primia_tpu/nn/vgg.py:vgg16_forward`` in share space: 13 convs with
+    their biases and ReLUs, a 2x2/s2 pool after each block, the
+    ``input_size // 32`` average pool, the classifier."""
+    ci = 0
+    for c in model.cfg:
+        if c == "M":
+            x = _pool(E, model, x, 2, 2)
+        else:
+            x = E.relu(_conv(E, P, model.features[ci], f"features.{ci}", x))
+            ci += 1
+    win = model.input_size // 32
+    return _classifier(E, P, E.flatten(E.avg_pool(x, window=win, stride=win)))
+
+
+def simpleconv_forward(E: MpcEngine, P: Dict[str, AShare], model: SimpleConv,
+                       x: AShare) -> AShare:
+    """``primia_tpu/nn/simpleconv.py:simpleconv_forward`` in share space:
+    each resolution's pattern of valid convs (bias, ReLU) and 2x2/s2 pools,
+    at 224 px the norms after pools 1, 2 and 4, the classifier."""
+    def conv(i, t):
+        return E.relu(_conv(E, P, model.convs[i], f"convs.{i}", t))
+
+    def pool(t):
+        return _pool(E, model, t, 2, 2)
+
+    if model.resolution == 28:
+        for i in range(4):
+            x = conv(i, x)
+        x = pool(conv(5, pool(conv(4, pool(x)))))
+    elif model.resolution == 224:
+        for i in range(6):
+            x = pool(conv(i, x))
+            if str(i) in model.bns:
+                x = _norm(E, P, model.bns[str(i)], f"bns.{i}", x)
+    else:  # 512
+        x = pool(pool(conv(0, x)))
+        for i in range(1, 6):
+            x = pool(conv(i, x))
+        x = pool(x)
+    return _classifier(E, P, E.flatten(x))
+
+
+def model_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: AShare,
+                  swap_pool_relu: bool) -> AShare:
+    """The share-space forward of ``model``'s family."""
+    if isinstance(model, VGG):
+        return vgg_forward(E, P, model, x)
+    if isinstance(model, SimpleConv):
+        return simpleconv_forward(E, P, model, x)
+    return resnet_forward(E, P, model, x, swap_pool_relu)
 
 
 def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
@@ -150,7 +234,7 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
         x = (x - mean_t) / std_t
         xs = S.share(S.stream(device, _DATA, call, idx), fixed.encode(x, frac))
         E = MpcEngine(MpcContext(S.stream(device, _DEALER, call, idx), frac, protocol))
-        return reveal_and_decode(resnet_forward(E, shared, model, xs, swap), frac).float()
+        return reveal_and_decode(model_forward(E, shared, model, xs, swap), frac).float()
 
     def predict(images_u8) -> torch.Tensor:
         imgs = images_u8 if isinstance(images_u8, torch.Tensor) else torch.from_numpy(

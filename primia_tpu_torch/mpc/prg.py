@@ -6,8 +6,10 @@ a (..., 4) seed -> two child seeds, their control bits and payload words)
 and ``words_to_ring``.
 
 PyTorch has no uint32 add or shift on the CPU, so a 32-bit word lives in
-an int64 tensor, in [0, 2^32), masked with ``& 0xFFFFFFFF`` after every
-add and left shift. The card's kernel (``csrc/dcf.cu``) runs the same
+an int64 tensor, in [0, 2^32), between calls. Inside the cipher the
+words are int32 bit patterns: two's-complement adds wrap mod 2^32, a
+left shift drops the high bits, and a right shift is masked to the bits
+a logical shift keeps. The card's kernel (``csrc/dcf.cu``) runs the same
 cipher on native ``uint32_t``; this module is its plain version's PRG.
 ``expand_child`` computes only one child, as an evaluation walk needs.
 """
@@ -26,20 +28,18 @@ def threefry2x32(key0, key1, x0, x1):
     """One Threefry-2x32-20 block per element: encrypts the counter
     (x0, x1) under (key0, key1). int64 tensors of 32-bit words that
     broadcast together; returns two such tensors of the broadcast shape."""
-    ks = (key0, key1, key0 ^ key1 ^ _PARITY)
-    x0, x1 = torch.broadcast_tensors(x0 + key0, x1 + key1)
-    x0 = x0.bitwise_and(MASK32)
-    x1 = x1.bitwise_and(MASK32)
+    ks = tuple(k.to(torch.int32) for k in (key0, key1, key0 ^ key1 ^ _PARITY))
+    x0, x1 = (t.to(torch.int32) for t in torch.broadcast_tensors(x0 + key0, x1 + key1))
     for group in range(5):
         for r in range(4):
             rot = _ROTATIONS[(group % 2) * 4 + r]
-            x0.add_(x1).bitwise_and_(MASK32)
-            low = x1 >> (32 - rot)
-            x1.bitwise_left_shift_(rot).bitwise_and_(MASK32).bitwise_or_(low)
+            x0.add_(x1)
+            low = (x1 >> (32 - rot)).bitwise_and_((1 << rot) - 1)
+            x1.bitwise_left_shift_(rot).bitwise_or_(low)
             x1.bitwise_xor_(x0)
-        x0.add_(ks[(group + 1) % 3]).bitwise_and_(MASK32)
-        x1.add_(ks[(group + 2) % 3]).add_(group + 1).bitwise_and_(MASK32)
-    return x0, x1
+        x0.add_(ks[(group + 1) % 3])
+        x1.add_(ks[(group + 2) % 3]).add_(group + 1)
+    return x0.to(torch.int64) & MASK32, x1.to(torch.int64) & MASK32
 
 
 def _blocks(seed: torch.Tensor, n_blocks: int):

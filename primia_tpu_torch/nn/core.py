@@ -91,6 +91,20 @@ def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> tor
     return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
 
 
+def pool2x2(x: torch.Tensor, pooling: str) -> torch.Tensor:
+    """VGG-16's and SimpleConv's 2x2/s2 pool, max or avg; odd sizes floor."""
+    return F.max_pool2d(x, 2, 2) if pooling == "max" else avg_pool(x, 2, 2)
+
+
+def mlp_head(classifier: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    """VGG-16's and SimpleConv's classifier on the flattened features: its
+    linears, a ReLU after each but the last."""
+    x = torch.flatten(x, 1)
+    for lin in classifier[:-1]:
+        x = F.relu(lin(x))
+    return classifier[-1](x)
+
+
 def _compute_dtype(x: torch.Tensor, w: torch.Tensor):
     """The dtype a conv of ``x`` and ``w`` computes in: autocast's where
     autocast is on for ``x``'s device, else the operands' shared dtype
@@ -101,19 +115,24 @@ def _compute_dtype(x: torch.Tensor, w: torch.Tensor):
 
 
 class Conv(nn.Module):
-    """Bias-free NCHW conv with OIHW weights and symmetric padding;
-    He-normal (fan_out, relu gain) init as the JAX package's
-    ``kaiming_normal_conv``. Under ``PRIMIA_PALLAS_WGRAD=1`` a conv that
-    meets the JAX package's condition runs as ``conv3x3_s1p1`` on the
-    bfloat16 operands: the same forward and data gradient, the weight
-    gradient from K7, cast to bfloat16 and back to the float32 parameter
-    as autocast's gradient is."""
+    """NCHW conv with OIHW weights and symmetric padding; He-normal
+    (fan_out, relu gain) init as the JAX package's ``kaiming_normal_conv``.
+    With ``bias=True`` (VGG-16's and SimpleConv's convs; ResNet's have
+    none) a zero-initialised bias is added after the conv in the conv's
+    output dtype, as the JAX package's ``E.bias_add``. Under
+    ``PRIMIA_PALLAS_WGRAD=1`` a conv that meets the JAX package's
+    condition runs as ``conv3x3_s1p1`` on the bfloat16 operands: the same
+    forward and data gradient, the weight gradient from K7, cast to
+    bfloat16 and back to the float32 parameter as autocast's gradient
+    is."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+                 bias: bool = False):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         nn.init.normal_(self.weight, std=math.sqrt(2.0 / (k * k * cout)))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
@@ -123,8 +142,10 @@ class Conv(nn.Module):
                 and w.shape[1] >= 128 and w.shape[0] >= 128
                 and _compute_dtype(x, w) == torch.bfloat16 and use_pallas_wgrad()):
             with torch.autocast(x.device.type, enabled=False):
-                return conv3x3_s1p1(x.to(torch.bfloat16), w.to(torch.bfloat16))
-        return F.conv2d(x, w, stride=self.stride, padding=self.padding)
+                y = conv3x3_s1p1(x.to(torch.bfloat16), w.to(torch.bfloat16))
+        else:
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
+        return y if self.bias is None else y + _channel(self.bias.to(y.dtype))
 
 
 class Norm(nn.Module):

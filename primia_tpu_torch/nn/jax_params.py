@@ -8,10 +8,16 @@ modules use PyTorch's layouts: conv OIHW, linear (out, in). Names map
 one to one: ``params["layer1"][0]["conv1"]["w"]`` is
 ``layer1.0.conv1.weight``.
 
-Leaves: ``w`` of a conv -> ``weight`` (HWIO -> OIHW); ``w``/``b`` of a
+Leaves: ``w`` of a conv -> ``weight`` (HWIO -> OIHW), and ``b`` ->
+``bias`` where the conv has one (VGG-16, SimpleConv); ``w``/``b`` of a
 linear -> ``weight`` (transposed)/``bias``; ``gamma``/``beta`` of a norm
 -> ``weight``/``bias``; its state ``mean``/``var``/``count`` ->
 ``running_mean``/``running_var``/``num_batches_tracked`` (int64).
+
+A numbered level of module names is a JAX list when its keys are
+``0 .. n-1`` (a layer's blocks, VGG's ``features``, the classifiers) and
+a dict with string keys otherwise (SimpleConv's ``bns``: ``"0"``, ``"1"``,
+``"3"``), as in the JAX trees.
 """
 
 from __future__ import annotations
@@ -79,9 +85,24 @@ def _listify(node):
     if not isinstance(node, dict):
         return node
     out = {k: _listify(v) for k, v in node.items()}
-    if out and all(k.isdigit() for k in out):
+    if out and set(out) == {str(i) for i in range(len(out))}:
         return [out[str(i)] for i in range(len(out))]
     return out
+
+
+def _module_params(m: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """``{JAX leaf: (attribute, layout)}`` of one module's parameters;
+    empty for a module that holds none of its own. Layout ``"conv"``
+    (OIHW here, HWIO there), ``"linear"`` ((out, in) here, (in, out)
+    there) or ``"vector"``."""
+    if isinstance(m, Conv):
+        return {"w": ("weight", "conv"),
+                **({} if m.bias is None else {"b": ("bias", "vector")})}
+    if isinstance(m, nn.Linear):
+        return {"w": ("weight", "linear"), "b": ("bias", "vector")}
+    if isinstance(m, Norm):
+        return {"gamma": ("weight", "vector"), "beta": ("bias", "vector")}
+    return {}
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -105,12 +126,9 @@ def param_leaves(module: nn.Module) -> List[Tuple[str, str]]:
     flat: Dict[str, Dict[str, Tuple[str, str]]] = {}
     for name, m in module.named_modules():
         pre = f"{name}." if name else ""
-        if isinstance(m, Conv):
-            flat[name] = {"w": (pre + "weight", "conv")}
-        elif isinstance(m, nn.Linear):
-            flat[name] = {"w": (pre + "weight", "linear"), "b": (pre + "bias", "vector")}
-        elif isinstance(m, Norm):
-            flat[name] = {"gamma": (pre + "weight", "vector"), "beta": (pre + "bias", "vector")}
+        leaves = _module_params(m)
+        if leaves:
+            flat[name] = {k: (pre + a, lay) for k, (a, lay) in leaves.items()}
     return list(_leaves(_nest(flat)))
 
 
@@ -156,14 +174,12 @@ def to_jax_tree(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     params: Dict[str, Dict[str, np.ndarray]] = {}
     state: Dict[str, Dict[str, np.ndarray]] = {}
     for name, m in module.named_modules():
-        if isinstance(m, Conv):
-            params[name] = {"w": np.ascontiguousarray(_np(m.weight).transpose(2, 3, 1, 0))}
-        elif isinstance(m, nn.Linear):
-            params[name] = {"w": np.ascontiguousarray(_np(m.weight).T), "b": _np(m.bias)}
-        elif isinstance(m, Norm):
-            params[name] = {"gamma": _np(m.weight), "beta": _np(m.bias)}
-            state[name] = {"mean": _np(m.running_mean), "var": _np(m.running_var),
-                           "count": _np(m.num_batches_tracked)}
+        leaves = _module_params(m)
+        if leaves:
+            params[name] = {k: np.ascontiguousarray(_np(_jax_layout(getattr(m, a), lay)))
+                            for k, (a, lay) in leaves.items()}
+        if isinstance(m, Norm):
+            state[name] = {k: _np(getattr(m, a)) for k, a in _STATE_LEAF.items()}
     return _nest(params), _nest(state)
 
 
@@ -178,12 +194,10 @@ def jax_leaf_paths(module: nn.Module) -> List[Tuple[tuple, str]]:
     state: Dict[str, Dict[str, str]] = {}
     for name, m in module.named_modules():
         pre = f"{name}." if name else ""
-        if isinstance(m, Conv):
-            params[name] = {"w": pre + "weight"}
-        elif isinstance(m, nn.Linear):
-            params[name] = {"w": pre + "weight", "b": pre + "bias"}
-        elif isinstance(m, Norm):
-            params[name] = {"gamma": pre + "weight", "beta": pre + "bias"}
+        leaves = _module_params(m)
+        if leaves:
+            params[name] = {k: pre + a for k, (a, _) in leaves.items()}
+        if isinstance(m, Norm):
             state[name] = {k: pre + v for k, v in _STATE_LEAF.items()}
     return list(_paths({"params": _nest(params), "state": _nest(state)}, ()))
 

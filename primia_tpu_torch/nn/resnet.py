@@ -54,6 +54,7 @@ class ResNet(nn.Module):
         super().__init__()
         if pooling not in ("max", "avg"):
             raise ValueError(f"unknown pooling {pooling!r}")
+        self.in_channels, self.num_classes = in_channels, num_classes
         self.pooling = pooling
         self.input_size = input_size
         self.swap_pool_relu = swap_pool_relu

@@ -147,7 +147,7 @@ def build_dp_train_step(model: nn.Module, optimizer, args, mean, std,
     K = max(int(getattr(args, "augment_multiplicity", 1)), 1)
     cdtype = resolve_compute_dtype(args, device)
     _warn_secure_noise()
-    in_channels = model.conv1.weight.shape[1]
+    in_channels = model.in_channels
     augment = build_augment_fn(AugmentConfig.from_args(args), mean, std, in_channels, device)
     w = _class_weights(args, class_weights, device)
     clip = float(args.max_grad_norm)
@@ -227,7 +227,9 @@ def ghost_capture(model: nn.Module, cdtype: torch.dtype):
     package's ghost engine calls the raw conv. Group norm records its affine
     with ``x_hat`` as the input; eval-mode batch norm records its folded
     affine with the running mean and ``rsqrt(var + eps)`` (JAX ``bn_meta``),
-    which chain the affine's gradient back to gamma and beta."""
+    which chain the affine's gradient back to gamma and beta. A conv with a
+    bias adds it inside its record: the bias's cotangent is the conv's
+    output cotangent (the JAX package's separate ``bias_add`` record)."""
     records: List[_Record] = []
 
     def tap(kind, m, x, y, **meta):
@@ -238,7 +240,10 @@ def ghost_capture(model: nn.Module, cdtype: torch.dtype):
 
     def conv(m, x):
         w = m.weight.detach().to(cdtype)
-        return tap("conv", m, x, F.conv2d(x, w, stride=m.stride, padding=m.padding))
+        y = F.conv2d(x, w, stride=m.stride, padding=m.padding)
+        if m.bias is not None:
+            y = y + m.bias.detach().to(y.dtype).reshape(1, -1, 1, 1)
+        return tap("conv", m, x, y)
 
     def norm(m, x):
         gamma, beta = m.weight.detach().to(cdtype), m.bias.detach().to(cdtype)
@@ -295,8 +300,9 @@ def _patches(x: torch.Tensor, kh: int, kw: int, stride: int, padding: int) -> to
 def _ghost_sq_norms(records: Sequence[_Record]) -> torch.Tensor:
     """Sweep 1 (``primia_tpu/train/dp.py:_ghost_layer_stats``): each
     example's squared norm of the whole parameter gradient, summed over
-    the records, in float32; leaves ``G`` (per-tap convs) and ``ga``/``gb``
-    (affines) on the records for sweep 2.
+    the records, in float32; leaves ``G`` (per-tap convs), ``gb`` (conv
+    biases, ``dy`` summed over H x W) and ``ga``/``gb`` (affines) on the
+    records for sweep 2.
 
     A conv's patches are (B, K, T), K = cin * kh * kw (:func:`_patches`).
     With T <= :data:`GHOST_GRAM_MAX_T` its norm is the T^2 gram form
@@ -323,6 +329,10 @@ def _ghost_sq_norms(records: Sequence[_Record]) -> torch.Tensor:
             else:
                 r.G = pat @ dyf.transpose(1, 2)
                 sq = r.G.square().sum((1, 2))
+            if m.bias is not None:
+                # an example's bias gradient: its cotangent summed over H x W
+                r.gb = dyf.sum(2)
+                sq = sq + r.gb.square().sum(-1)
         elif r.kind == "linear":
             ds = dy.float().square().sum(-1)
             sq = x.float().square().sum(-1) * ds
@@ -351,7 +361,7 @@ def _ghost_weighted_grads(records: Sequence[_Record], factor: torch.Tensor):
     (``PRIMIA_PALLAS_WGRAD=1``, a 3x3/s1/p1 bfloat16 conv with
     128 <= cin, cout <= 256), else the library's
     (``torch.nn.grad.conv2d_weight``); the affines and the fc contract
-    their sums."""
+    their sums, as does a conv's bias."""
     out = []
     for r in records:
         m = r.module
@@ -371,6 +381,8 @@ def _ghost_weighted_grads(records: Sequence[_Record], factor: torch.Tensor):
                     gw = torch.nn.grad.conv2d_weight(x, m.weight.shape, dyc, stride=m.stride,
                                                      padding=m.padding)
             out.append((m.weight, gw))
+            if m.bias is not None:
+                out.append((m.bias, factor @ r.gb))
         elif r.kind == "linear":
             df = r.dy.float()
             out.append((m.weight, df.t() @ (r.x.float() * factor[:, None])))
@@ -401,7 +413,7 @@ def build_ghost_dp_train_step(model: nn.Module, optimizer, args, mean, std,
     (``w_y ce / w_y``), as in the microbatched path."""
     device = torch.device(device)
     _warn_secure_noise()
-    in_channels = model.conv1.weight.shape[1]
+    in_channels = model.in_channels
     augment = build_augment_fn(AugmentConfig.from_args(args), mean, std, in_channels, device)
     clip = float(args.max_grad_norm)
     sigma = float(args.noise_multiplier) * clip

@@ -52,11 +52,18 @@ def load_train_val(args: Arguments):
     """Datasets and normalisation statistics of the local path (reference
     ``train.py:130-193``): train = ImageFolder(data_dir), val = the
     sibling ``test`` folder when present, else a ``validation_split``
-    holdout. Returns (train images, train labels, val images, val labels,
-    mean, std, class names)."""
+    holdout; or, with ``data_dir = mnist``, the local MNIST IDX files
+    (``data/mnist.py``): 10 classes, one channel, the canonical
+    normalisation. Returns (train images, train labels, val images, val
+    labels, mean, std, class names)."""
     if args.data_dir == "mnist":
-        raise NotImplementedError(
-            "the MNIST path (primia_tpu/data/mnist.py) is not ported yet (ROADMAP queue 1)")
+        # the reference's "weak machine" path (train.py:99-129)
+        from primia_tpu_torch.data.mnist import CLASSES, load_mnist, resize_to
+
+        tri, trl, tei, tel = load_mnist()
+        res = args.inference_resolution
+        return (resize_to(tri, res), trl, resize_to(tei, res), tel,
+                np.array([0.1307]), np.array([0.3081]), CLASSES)
     channels = 1 if not args.pretrained else 3
     train_ds = ImageFolderDataset(args.data_dir, channels=channels)
     if len(train_ds.classes) != 3:

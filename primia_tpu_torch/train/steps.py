@@ -94,11 +94,11 @@ def build_train_step(model: torch.nn.Module, optimizer, args, mean, std,
     """
     device = torch.device(device)
     cfg = AugmentConfig.from_args(args)
-    in_channels = model.conv1.weight.shape[1]
+    in_channels = model.in_channels
     augment = build_augment_fn(cfg, mean, std, in_channels, device)
     w = _class_weights(args, class_weights, device)
     onehot = uses_onehot_loss(args)
-    nc = model.fc.out_features
+    nc = model.num_classes
     cdtype = resolve_compute_dtype(args, device)
     _full_f32(device)
 
@@ -134,8 +134,8 @@ def build_eval_step(model: torch.nn.Module, args, mean, std,
     device = torch.device(device)
     w = _class_weights(args, class_weights, device)
     onehot = uses_onehot_loss(args)
-    nc = model.fc.out_features
-    in_channels = model.conv1.weight.shape[1]
+    nc = model.num_classes
+    in_channels = model.in_channels
     _full_f32(device)
 
     @torch.no_grad()

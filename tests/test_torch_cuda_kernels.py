@@ -225,10 +225,10 @@ def _dcf_operands(n, device, seed=13):
                                         words((n,), 2), words((n,), 1 << 31)))
 
 
-# the ragged size and the largest call at batch 1 (the stem max-pool's
-# first round at 224 px)
+# the ragged size, the largest call of a ResNet forward at batch 1 (the stem
+# max-pool's first round at 224 px) and of a VGG-16 one (its first ReLU)
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [300, 802_816])
+@pytest.mark.parametrize("n", [300, 802_816, 3_211_264])
 def test_dcf_sign_matches_plain(cuda_device, n):
     seeds, alpha, c, x = _dcf_operands(n, cuda_device)
     before = cuda_dcf.launches["dcf_sign"]
@@ -360,10 +360,12 @@ def _bf16_cl(shape, device, seed, scale=1.0, shift=0.0):
     return t.to(device=device, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
 
-# (B, ci, co, H, W): layer2's and layer3's train shapes, and ragged ones (H not
-# a multiple of the box's rows, W not of 16, channels not multiples of 64 or
-# under a box's 64, an M tile with one block)
-WGRAD_SHAPES = [(200, 128, 128, 28, 28), (200, 256, 256, 14, 14), (3, 64, 512, 9, 11),
+# (B, ci, co, H, W): layer2's and layer3's train shapes, VGG-16's largest map
+# and its 512-channel stage at batch 64, and ragged ones (H not a multiple of
+# the box's rows, W not of 16, channels not multiples of 64 or under a box's
+# 64, an M tile with one block)
+WGRAD_SHAPES = [(200, 128, 128, 28, 28), (200, 256, 256, 14, 14), (64, 128, 128, 112, 112),
+                (64, 512, 512, 14, 14), (3, 64, 512, 9, 11),
                 (2, 512, 64, 5, 7), (1, 8, 16, 3, 3), (2, 72, 136, 13, 28),
                 (4, 128, 128, 7, 14)]
 
@@ -453,8 +455,11 @@ def test_conv3x3_s1p1_under_vmap_launches_k7_once_an_example(cuda_device):
         torch.testing.assert_close(dx[i], grad(loss, argnums=1)(w, x[i], t[i]), rtol=0, atol=0)
 
 
-# the stem and layer4 at batch 200, and ragged shapes (C = 24, 64, 128, 512)
-BN_SHAPES = [(200, 64, 112, 112), (200, 512, 7, 7), (3, 24, 5, 7), (4, 64, 9, 11),
+# the stem and layer4 at batch 200, SimpleConv@224's first and last batch
+# norms at batch 4 (C = 8 on an odd 111^2 map: one 16-byte row a pixel), and
+# ragged shapes (C = 24, 64, 128, 512)
+BN_SHAPES = [(200, 64, 112, 112), (200, 512, 7, 7), (4, 8, 111, 111), (4, 128, 12, 12),
+             (3, 24, 5, 7), (4, 64, 9, 11),
              (5, 128, 3, 3), (1, 512, 1, 1)]
 
 

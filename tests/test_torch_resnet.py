@@ -130,6 +130,29 @@ def test_create_model_follows_the_config():
 
 
 @pytest.mark.parametrize("name", ["vgg16", "simpleconv"])
-def test_models_not_yet_ported_say_so(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(Arguments(model=name), num_classes=3, device="cpu")
+def test_models_not_yet_ported_say_so(name, tmp_path, monkeypatch):
+    """Both families build (their parity with the JAX package is
+    ``tests/test_torch_models.py``); what the port still lacks for them says
+    so: VGG-16's ImageNet import warns with the JAX package's words and
+    keeps the init; SimpleConv refuses resolutions it has no variant for,
+    and MNIST above 28 px names the missing port of ``native.py``."""
+    from primia_tpu_torch.data.mnist import resize_to
+
+    model = create_model(Arguments(model=name, inference_resolution=RES, train_resolution=28),
+                         num_classes=3, device="cpu")
+    assert (model.in_channels, model.num_classes) == (1, 3) and not model.training
+    if name == "vgg16":
+        weights = tmp_path / "vgg16-imagenet.pt"
+        torch.save({}, weights)
+        monkeypatch.setenv("PRIMIA_PRETRAINED", str(weights))
+        with pytest.warns(UserWarning, match="pretrained import not implemented for vgg16"):
+            model = create_model(Arguments(model=name, pretrained=True,
+                                           inference_resolution=RES), num_classes=3, device="cpu")
+        assert model.in_channels == 3
+        with pytest.raises(ValueError, match="group"):
+            create_model(Arguments(model=name, normalization="group"), device="cpu")
+    else:
+        with pytest.raises(ValueError, match="28/224/512"):
+            create_model(Arguments(model=name, train_resolution=RES), device="cpu")
+        with pytest.raises(NotImplementedError, match="native.py"):
+            resize_to(np.zeros((1, 28, 28, 1), np.uint8), 224)
