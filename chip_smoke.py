@@ -264,7 +264,35 @@ Phases, each reported on its own line; any failure exits nonzero:
                   (K = 16, sigma 3.0) with --train_federated on phase 16's 3
                   nodes of 512 images: one step a node and one secure
                   aggregation (K1 twice a node step).
-20. kernels       one JSON line with each kernel's error, times, bound and
+20. grid          slice 7, the grid: port nodes (``serve/node.py``) served in
+                  process on cuda on localhost ports. A data_owner node
+                  hosting 16 of the serve phase's DICOMs serves its
+                  checkpoint (``GridNetwork.serve_model``): remote plain
+                  requests at batch 16 over ws and over HTTP, their logits
+                  bit for bit the local predict step's, CLAHE once a request;
+                  get_data_shares reconstructing to encode(x) mod 2^64; the
+                  inference CLI with --websockets_config (and
+                  --http_protocol) predicting what it predicts on the local
+                  files; one encrypted request under fss at batch 1 (K4 21
+                  times, within phase 13's limit of plain). Then the train
+                  CLI with --train_federated --websockets on the canonical
+                  federated INI (epochs 40 -> 5: one epoch of 2 rounds of 3
+                  steps a node) against three nodes of 200 DICOMs and a
+                  crypto provider named by a config.csv in a work directory
+                  (K1 four times and CLAHE once a node step, nothing else),
+                  its checkpoint through the evaluate CLI; one node started
+                  as a process (``python -m primia_tpu_torch.serve.node``)
+                  answering one remote request as the in-process node does.
+                  Times: a request's p50 over each transport split into node
+                  compute, pack/unpack and transport; each of the CLI's
+                  rounds, timed while it runs, by frame bytes, pack and
+                  unpack seconds on both sides, node seconds, fan-out and
+                  aggregation; the device busy ms and idle share of a round
+                  from its three node rounds and aggregation rerun once
+                  under the profiler; the transport that carried each verb
+                  (a frame over 1 MiB is refused on ws and goes by HTTP) and
+                  whether the native library loaded.
+21. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
@@ -286,7 +314,7 @@ of phase 14 and the federated step beside it, the DP steps', with
 ``.train``, ``.encrypt``, ``.encrypt_snn``, ``.encrypt_group_{fss,snn}``,
 ``.train_optin.{default,switched}``, ``.federated`` or
 ``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
-Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19.
+Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19, 20.
 Earlier phases run shallower to make room for 17-19: phases 7 and 14 time 12
 steps (24 before), phase 16's DP steps 3 after 1 warm-up (6 after 2).
 """
@@ -302,6 +330,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -324,11 +353,12 @@ KERNELS = {
     "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
               "also": ("federated", "encrypt_snn", "vgg_serve", "vgg_train", "vgg_encrypt",
                        "vgg_encrypt_snn", "conv_serve", "conv_train", "conv_encrypt",
-                       "conv_encrypt_snn"), "kernel": ("clahe_kernel",),
+                       "conv_encrypt_snn", "grid_serve", "grid_federated"),
+              "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
                   "also": ("federated", "dp", "dp_federated", "vgg_train", "conv_train",
-                           "mnist", "conv_dp", "conv_dp_federated"),
+                           "mnist", "conv_dp", "conv_dp_federated", "grid_federated"),
                   "kernel": ("tent_rows_kernel",),
                   "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
@@ -337,7 +367,8 @@ KERNELS = {
                       "path": "train_twopass0", "kernel": ("tent_bilinear_kernel",),
                       "source": "primia_tpu_torch/csrc/tent.cu"},
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
-                 "also": ("encrypt_group", "vgg_encrypt", "conv_encrypt", "conv_group_encrypt"),
+                 "also": ("encrypt_group", "vgg_encrypt", "conv_encrypt", "conv_group_encrypt",
+                          "grid_encrypt"),
                  "kernel": ("dcf_sign_kernel",),
                  "source": "primia_tpu_torch/csrc/dcf.cu"},
     # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
@@ -3142,6 +3173,389 @@ def phase_conv_dp(torch, seed, work, profile_out):
     return {"conv_dp": launches, "conv_group_encrypt": enc["fss"],
             "conv_dp_federated": flaunches}
 
+GRID_REQUESTS = 10  # timed remote requests a transport
+GRID_PER_CLASS = ((67, 67, 66),) * 3  # 200 DICOMs a node: one batch of 200
+GRID_NODE_TIMEOUT_S = 60.0
+
+
+def _free_port():
+    """A port free for ws whose port + 1000 (the node's HTTP) is free too."""
+    import socket
+
+    while True:
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            port = a.getsockname()[1]
+        if port + 1000 > 65535:
+            continue
+        with socket.socket() as b:
+            try:
+                b.bind(("127.0.0.1", port + 1000))
+            except OSError:
+                continue
+        return port
+
+
+def _seconds_p50(np, fn, n):
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return float(np.percentile(out, 50))
+
+
+class RoundParts:
+    """Times the parts of the federated ws CLI's own rounds while it runs:
+    each ``train_round`` RPC (``NodeClient.send``, with its transport), the
+    client's and the node's pack and unpack of its frames (bytes, seconds),
+    each node's ``GridNode._train_round`` and each ``aggregate_wire``. Keeps
+    the last round's request and replies for a profiled rerun."""
+
+    def __init__(self):
+        self.events = []  # (kind, start, end, extra)
+        self.lock = threading.Lock()
+        self.last_msg, self.last_replies = None, {}
+
+    def _add(self, kind, t0, extra=None):
+        with self.lock:
+            self.events.append((kind, t0, time.perf_counter(), extra))
+
+    def __enter__(self):
+        from primia_tpu_torch.parallel import federated
+        from primia_tpu_torch.serve import client, node
+
+        rec, self._undo = self, []
+
+        def patch(owner, name, make):
+            orig = getattr(owner, name)
+            self._undo.append((owner, name, orig))
+            setattr(owner, name, make(orig))
+
+        def send(orig):
+            def wrapped(c, msg):
+                t0 = time.perf_counter()
+                out = orig(c, msg)
+                if msg.get("type") == "train_round":
+                    rec._add("send", t0, c.last_transport)
+                    rec.last_msg = msg
+                    rec.last_replies[c.id] = out
+                return out
+            return wrapped
+
+        def frames(side):
+            def make(orig):
+                def wrapped(x):
+                    t0 = time.perf_counter()
+                    out = orig(x)
+                    msg = out if isinstance(out, dict) else x
+                    if msg.get("type") == "train_round" or "n_batches" in msg:
+                        frame = x if isinstance(x, bytes) else out
+                        rec._add(side + ("_unpack" if isinstance(x, bytes) else "_pack"), t0,
+                                 len(frame))
+                    return out
+                return wrapped
+            return make
+
+        def timed(kind):
+            def make(orig):
+                def wrapped(*a, **k):
+                    t0 = time.perf_counter()
+                    out = orig(*a, **k)
+                    rec._add(kind, t0)
+                    return out
+                return wrapped
+            return make
+
+        patch(client.NodeClient, "send", send)
+        for mod, side in ((client, "client"), (node, "node")):
+            patch(mod, "pack", frames(side))
+            patch(mod, "unpack", frames(side))
+        patch(node.GridNode, "_train_round", timed("node"))
+        patch(federated, "aggregate_wire", timed("aggregate"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+    def rounds(self):
+        """Per aggregation: the round's seconds (first send to the end of
+        the aggregation), its fan-out (first send to last reply), the nodes'
+        train_round seconds, the aggregation's seconds and the frames'
+        bytes and pack/unpack seconds."""
+        ev = sorted(self.events, key=lambda e: e[1])
+        out, begin = [], 0.0
+        for _, a0, a1, _ in (e for e in ev if e[0] == "aggregate"):
+            part = [e for e in ev if begin <= e[1] < a1]
+            sends = [e for e in part if e[0] == "send"]
+            row = {"round_seconds": a1 - min(e[1] for e in sends),
+                   "fan_out_seconds": max(e[2] for e in sends) - min(e[1] for e in sends),
+                   "aggregation_seconds": a1 - a0,
+                   "node_round_seconds": [e[2] - e[1] for e in part if e[0] == "node"],
+                   "transports": sorted({e[3] for e in sends})}
+            for kind in ("client_pack", "client_unpack", "node_pack", "node_unpack"):
+                fr = [e for e in part if e[0] == kind]
+                row[kind] = {"frames": len(fr), "bytes": sorted({e[3] for e in fr}),
+                             "seconds": [round(e[2] - e[1], 4) for e in fr]}
+            out.append(row)
+            begin = a1
+        return out
+
+
+def phase_grid(torch, seed, work):
+    """Phase 20, slice 7: the grid's main path on the card (see the module
+    docstring). Returns the launch counts of the remote plain request, the
+    encrypted request and the federated ws CLI."""
+    import numpy as np
+
+    from primia_tpu_torch import native
+    from primia_tpu_torch.cli import evaluate as evaluate_cli
+    from primia_tpu_torch.cli import inference as inference_cli
+    from primia_tpu_torch.cli import train as train_cli
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.data import PathDataset
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.nn.jax_params import from_jax_tree, jax_leaf_paths, to_jax_tree
+    from primia_tpu_torch.parallel.federated import aggregate_wire
+    from primia_tpu_torch.serve import GridNetwork, GridNode, NodeClient, NodeServer
+    from primia_tpu_torch.serve.node import _flatten
+    from primia_tpu_torch.serve.protocol import pack, unpack
+    from primia_tpu_torch.train import checkpoint as ckpt
+    from primia_tpu_torch.train.steps import build_predict_step
+
+    root = work / "grid"
+    owner_dir = root / "owner"
+    owner_dir.mkdir(parents=True)
+    for f in sorted((work / "images").iterdir())[:BATCH]:
+        shutil.copy(f, owner_dir / f.name)
+    weights = work / "resnet18-canonical.pt"
+    state = ckpt.load_model(weights)
+    args, (mean, std) = state["args"], state["val_mean_std"]
+    msd = state["model_state_dict"]
+    model = create_model(args, num_classes=3, device="cuda")
+    model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+    imgs, _ = PathDataset(owner_dir, channels=3).materialize(RES)
+    local = build_predict_step(model, args, mean, std, "cuda")(imgs).float().cpu().numpy()
+    say("grid", native_library=native.available(), images=len(imgs), batch=BATCH,
+        weights=weights.relative_to(ROOT))
+
+    servers, transports = [], {}
+    proc = None
+    try:
+        # ---------------------------------------------------- remote serving
+        owner = GridNode("data_owner", data_directory=str(owner_dir), config=str(CONFIG),
+                         device="cuda")
+        port = _free_port()
+        servers.append(NodeServer(owner, port=port).start())
+        check(owner.store["#inference_data"].tobytes() == imgs.tobytes(),
+              "the data owner's hosted images differ from the local files")
+        ws = NodeClient("data_owner", "127.0.0.1", port, timeout=GRID_NODE_TIMEOUT_S)
+        http = NodeClient("data_owner", "127.0.0.1", port, http_only=True,
+                          timeout=GRID_NODE_TIMEOUT_S)
+        grid, grid_http = GridNetwork([ws]), GridNetwork([http])
+        host_msg_bytes = len(pack({"params": _flatten(to_jax_tree(model)[0])}))
+        out = grid.serve_model("data_owner", name="resnet18", params=model,
+                               args_json=args.to_json(), mean=mean, std=std)
+        check(out.get("ok"), f"host_model: {out}")
+        transports["host_model"] = ws.last_transport
+        req = {"type": "run_inference", "name": "resnet18", "encrypted": False,
+               "protocol": "snn"}
+        by_path = {}
+        for name, g, c in (("ws", grid, ws), ("http", grid_http, http)):
+            reset_launches()
+            got = g.run_remote_inference("data_owner", name="resnet18")
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check(launches == idle_launches(clahe=1),
+                  f"remote plain request over {name}: launches {launches}")
+            check(got["logits"].tobytes() == local.tobytes(),
+                  f"remote plain logits over {name} differ from the local predict step's: "
+                  f"max |d| {float(np.abs(got['logits'] - local).max())}")
+            check(c.last_transport == name, f"run_inference went by {c.last_transport}")
+            by_path["grid_serve"] = launches
+        transports["run_inference"] = ws.last_transport
+        reply = owner.handle(req)
+        pack_s = _seconds_p50(np, lambda: (unpack(pack(req)), unpack(pack(reply))),
+                              GRID_REQUESTS)
+        compute_s = _seconds_p50(np, lambda: owner.handle(req), GRID_REQUESTS)
+        for name, g in (("ws", grid), ("http", grid_http)):
+            total_s = _seconds_p50(
+                np, lambda: g.run_remote_inference("data_owner", name="resnet18"),
+                GRID_REQUESTS)
+            say("grid", transport=name, batch=BATCH, requests=GRID_REQUESTS,
+                request_ms_p50=f"{total_s * 1e3:.4f}", node_compute_ms_p50=f"{compute_s * 1e3:.4f}",
+                pack_unpack_ms_p50=f"{pack_s * 1e3:.4f}",
+                transport_ms=f"{(total_s - compute_s - pack_s) * 1e3:.4f}",
+                img_per_s=f"{BATCH / total_s:.2f}")
+
+        shares = ws.send({"type": "get_data_shares", "tag": "#inference_data", "party": -1,
+                          "seed": 7})
+        transports["get_data_shares"] = ws.last_transport
+        s0, s1 = shares["shares"]
+        x = imgs.astype(np.float32) / 255.0
+        enc = np.round(x.astype(np.float64) * (1 << 16)).astype(np.int64)
+        check(np.array_equal((s0.view(np.uint64) + s1.view(np.uint64)).view(np.int64), enc),
+              "get_data_shares does not reconstruct to encode(x)")
+
+        csv = root / "remote.csv"
+        csv.write_text(f"id,data_owner\nhost,127.0.0.1\nport,{port}\n")
+        base = ["--model_weights", str(weights), "--batch_size", str(BATCH), "--device", "cuda"]
+        want, _, _, local_launches = run_cli(torch, inference_cli,
+                                             base + ["--data_dir", str(owner_dir)], root,
+                                             root / "local_cli.log")
+        for extra in ([], ["--http_protocol"]):
+            res, _, cli_s, launches = run_cli(
+                torch, inference_cli, base + ["--websockets_config", str(csv)] + extra, root,
+                root / f"remote_cli{'_http' if extra else ''}.log")
+            check(res == want, f"the inference CLI over the grid {extra} predicts "
+                  f"{res['Inference Results']}, locally {want['Inference Results']}")
+            check(launches == local_launches == idle_launches(clahe=1),
+                  f"remote inference CLI launches {launches}")
+            say("grid", inference_cli="--websockets_config " + " ".join(extra),
+                cli_seconds=f"{cli_s:.4f}", predictions_equal_local=True)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        got = grid.run_remote_inference("data_owner", name="resnet18", images=imgs[:1],
+                                        encrypted=True, protocol="fss")
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches == idle_launches(clahe=1, dcf_sign=SIGNS_PER_FORWARD),
+              f"remote encrypted request launches {launches}")
+        limit = max(0.02, 1e-3 * float(np.abs(local[:1]).max()))
+        d = float(np.abs(got["logits"] - local[:1]).max())
+        check(d <= limit, f"remote encrypted logits off plain by {d} (limit {limit})")
+        by_path["grid_encrypt"] = launches
+        say("grid", encrypted="fss", batch=1, seconds_first_request=f"{enc_s:.4f}",
+            max_abs_dlogit=d, limit=limit, launches=json.dumps(launches))
+
+        # ------------------------------------------ federated over live nodes
+        fed = root / "federated"
+        write_federated_dataset(np, np.random.default_rng(seed + 20), fed, GRID_PER_CLASS)
+        ini = cut_ini(root, FED_CONFIG, (("epochs = 40", "epochs = 5"),))
+        fargs = Arguments.from_ini(ini, cmd_args=argparse.Namespace(
+            data_dir=str(fed), train_federated=True, websockets=True))
+        check(fargs.epochs == 1 and fargs.batch_size == TRAIN_BATCH
+              and fargs.sync_every_n_batch == 3 and fargs.repetitions_dataset == 5,
+              f"unexpected federated config: {FED_CONFIG}")
+        rows = {"id": [], "host": [], "port": []}
+        nodes = {}
+        for i, w in enumerate(("alice", "bob", "charlie", "crypto_provider")):
+            nodes[w] = GridNode(w, data_directory=(None if w == "crypto_provider"
+                                                   else str(fed / f"worker{i + 1}")),
+                                config=str(ini), device="cuda")
+            p = _free_port()
+            servers.append(NodeServer(nodes[w], port=p).start())
+            rows["id"].append(w)
+            rows["host"].append("127.0.0.1")
+            rows["port"].append(str(p))
+        run_dir = root / "federated_run"
+        (run_dir / "configs" / "websetting").mkdir(parents=True)
+        (run_dir / "configs" / "websetting" / "config.csv").write_text(
+            "\n".join(",".join([k] + rows[k]) for k in ("id", "host", "port")) + "\n")
+        steps_round = fargs.sync_every_n_batch
+        rounds = -(-fargs.repetitions_dataset // steps_round)  # one batch a pass a node
+        node_steps = 3 * rounds * steps_round
+        torch.manual_seed(seed)
+        with RoundParts() as parts:
+            best, out, cli_s, launches = run_cli(torch, train_cli, [
+                "--config", str(ini), "--data_dir", str(fed), "--train_federated",
+                "--websockets", "--save_file", str(root / "runs.csv"), "--device", "cuda"],
+                run_dir, root / "federated_ws_cli.log")
+        want = idle_launches(tent_rows=4 * node_steps, clahe=node_steps)
+        check(launches == want, f"federated ws CLI launches {launches}, expected {want}")
+        finals = sorted((run_dir / "model_weights").glob("final_federated_*.pt"))
+        check(len(finals) == 1 and np.isfinite(best), f"federated ws CLI: best {best}, "
+              f"{len(finals)} final checkpoints")
+        fstate = ckpt.load_model(finals[0])
+        check(fstate["args"].websockets and sorted(fstate["optim_state_dict"])
+              == ["alice", "bob", "charlie"], "federated ws checkpoint")
+        by_path["grid_federated"] = launches
+        stats, _, eval_s, _ = run_cli(torch, evaluate_cli, [
+            "--data_dir", str(fed / "validation"), "--model_weights", str(finals[0]),
+            "--device", "cuda"], root, root / "federated_ws_eval.log")
+        check(np.asarray(stats["conf_matrix"]).sum() == 3 * TEST_PER_CLASS,
+              f"evaluate CLI on the federated ws checkpoint: {stats['conf_matrix']}")
+        say("grid", federated_ws_cli_seconds=f"{cli_s:.4f}", nodes=3, images_per_node=200,
+            batch=TRAIN_BATCH, rounds=rounds, steps_per_round=steps_round,
+            node_steps=node_steps, launches=json.dumps(launches),
+            tent_rows_per_node_step=launches["tent_rows"] / node_steps,
+            clahe_per_node_step=launches["clahe"] / node_steps, best_mcc_percent=best,
+            evaluate_seconds=f"{eval_s:.4f}", matthews=stats["matthews_coeff"])
+
+        # the CLI's rounds by parts; the device's share of a round from one
+        # profiled rerun of the last round's three node rounds and aggregation
+        rounds_by_parts = parts.rounds()
+        check(len(rounds_by_parts) == rounds, f"{len(rounds_by_parts)} rounds timed")
+        for i, row in enumerate(rounds_by_parts):
+            say("grid", federated_round=i + 1, **{k: json.dumps(v) if isinstance(v, (list, dict))
+                                                   else f"{v:.4f}" for k, v in row.items()})
+        transports["train_round"] = rounds_by_parts[-1]["transports"]
+        node_busy = []
+        for w in rows["id"][:3]:
+            prof = trace(torch, lambda w=w: nodes[w].handle(parts.last_msg), 1)
+            node_busy.append(sum(device_ms_by_category(prof.key_averages(), 1).values()))
+        leaves = jax_leaf_paths(create_model(fargs, num_classes=3, device="cuda"))
+        prof = trace(torch, lambda: aggregate_wire(
+            parts.last_replies, rows["id"][:3], leaves, np.full(3, 1 / 3),
+            (seed, 777, 1), fargs.precision_fractional, torch.device("cuda")), 1)
+        agg_busy = sum(device_ms_by_category(prof.key_averages(), 1).values())
+        busy = sum(node_busy) + agg_busy
+        round_ms = rounds_by_parts[-1]["round_seconds"] * 1e3
+        for c in (ws, http):
+            c.close()
+        say("grid", raw_param_bytes=sum(v.nbytes for v in parts.last_msg["params"].values()),
+            host_model_frame_bytes=host_msg_bytes, ws_frame_limit_bytes=1 << 20,
+            node_device_busy_ms=json.dumps([round(b, 4) for b in node_busy]),
+            aggregation_device_busy_ms=f"{agg_busy:.4f}",
+            round_device_busy_ms=f"{busy:.4f}", round_ms=f"{round_ms:.4f}",
+            idle_share=f"{1.0 - busy / round_ms:.4f}" if busy > 0 else "not measured")
+        say("grid", transports=json.dumps(transports))
+
+        # ------------------------------------------------ one node, a process
+        pport = _free_port()
+        log = open(root / "node_process.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "primia_tpu_torch.serve.node", "--id", "data_owner",
+             "--port", str(pport), "--data_directory", str(owner_dir), "--config",
+             str(CONFIG)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        pc = NodeClient("data_owner", "127.0.0.1", pport, timeout=GRID_NODE_TIMEOUT_S)
+        t0 = time.perf_counter()
+        while True:
+            try:
+                check(pc.status()["id"] == "data_owner", "node process status")
+                break
+            except (OSError, ConnectionError):
+                check(proc.poll() is None and time.perf_counter() - t0 < 180,
+                      f"the node process did not come up: {(root / 'node_process.log').read_text()}")
+                time.sleep(1.0)
+        up_s = time.perf_counter() - t0
+        pgrid = GridNetwork([pc])
+        check(pgrid.serve_model("data_owner", name="resnet18", params=model,
+                                args_json=args.to_json(), mean=mean, std=std).get("ok"),
+              "host_model on the node process")
+        got = pgrid.run_remote_inference("data_owner", name="resnet18")["logits"]
+        pc.close()
+        d = float(np.abs(got - local).max())
+        check(d <= 1e-5 * float(np.abs(local).max()),
+              f"the node process's logits off the in-process node's by {d}")
+        say("grid", node_process_seconds_to_serve=f"{up_s:.4f}", max_abs_dlogit=d,
+            bit_equal=got.tobytes() == local.tobytes())
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for s in servers:
+            s.stop()
+    return by_path
+
+
 
 def _leaf(tree, path):
     for k in path:
@@ -3228,6 +3642,8 @@ def main(argv=None) -> int:
         lap("simpleconv")
         by_path.update(phase_conv_dp(torch, opts.seed, work, profile_out))
         lap("conv_dp")
+        by_path.update(phase_grid(torch, opts.seed, work))
+        lap("grid")
         say("seconds", **seconds, total=round(sum(seconds.values()), 1))
         for name, meta in KERNELS.items():
             for path in (meta["path"], *meta.get("also", ())):

@@ -10,8 +10,10 @@ shares (``mpc/inference.py``: two computing parties and the dealer
 simulated on the device, fixed point in Z_{2^64}, batch norm folded and
 group norm private); ``--protocol`` picks its comparison, ``fss`` (the
 DCF comparison on kernel K4, the default here) or ``snn`` (SecureNN). The
-output contract is the same. Remote inference (``--websockets_config``,
-``--http_protocol``) is not ported yet.
+output contract is the same. ``--websockets_config`` fetches the images
+from the ``data_owner`` grid node the CSV names (its hosted
+``#inference_data``; ws, or HTTP under ``--http_protocol``) and
+classifies them here, plain or encrypted.
 """
 
 from __future__ import annotations
@@ -39,6 +41,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--protocol", type=str, default="fss", choices=("snn", "fss"),
         help="MPC comparison protocol for encrypted inference: fss (the DCF "
         "comparison, kernel K4) or snn (SecureNN)",
+    )
+    parser.add_argument(
+        "--websockets_config", default=None,
+        help="csv file with id/host/port rows naming a data_owner grid node; "
+        "its hosted #inference_data is classified instead of --data_dir",
+    )
+    parser.add_argument(
+        "--http_protocol", action="store_true",
+        help="Use HTTP only instead of WS (remote mode).",
     )
     parser.add_argument(
         "--batch_size", type=int, default=1,
@@ -82,8 +93,18 @@ def run(cmd_args) -> dict:
     channels = 1 if not args.pretrained else 3
     class_names = {0: "normal", 1: "bacterial pneumonia", 2: "viral pneumonia"}
 
-    dataset = PathDataset(cmd_args.data_dir, channels=channels)
-    imgs, _ = dataset.materialize(args.inference_resolution)
+    if cmd_args.websockets_config:
+        from primia_tpu_torch.serve.client import RemoteInferenceSession
+
+        session = RemoteInferenceSession(cmd_args.websockets_config,
+                                         http_only=cmd_args.http_protocol)
+        try:
+            imgs = session.fetch_inference_data()
+        finally:
+            session.close()
+    else:
+        dataset = PathDataset(cmd_args.data_dir, channels=channels)
+        imgs, _ = dataset.materialize(args.inference_resolution)
 
     model = create_model(args, num_classes=len(class_names), device=device)
     msd = state["model_state_dict"]

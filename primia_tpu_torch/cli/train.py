@@ -6,12 +6,14 @@ reference ``train.py:555-631``), plus ``--device``::
     python -m primia_tpu_torch.cli.train --config configs/torch/pneumonia-resnet-pretrained.ini \\
         --data_dir data/train [--device cuda|cpu]
 
-Runs on CUDA unless ``--device cpu``. Single-site training and the
+Runs on CUDA unless ``--device cpu``. Single-site training, the
 simulated federation (``--train_federated``: 3 hospital nodes on one
-card, secure aggregation unless ``--unencrypted_aggregation``) are
-ported, each with DP-SGD under ``differentially_private = yes``
-(``train/dp.py``); ``--websockets`` (slice 6) raises
-``NotImplementedError``.
+card, secure aggregation unless ``--unencrypted_aggregation``), each with
+DP-SGD under ``differentially_private = yes`` (``train/dp.py``), and
+federated training against live grid nodes (``--train_federated
+--websockets``: the nodes of ``configs/websetting/config.csv`` under the
+working directory, started with ``python -m primia_tpu_torch.serve.node``
+or ``serve/launcher.py``).
 """
 
 from __future__ import annotations
@@ -43,8 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume_checkpoint", type=str, default=None,
                         help="Start training from older model checkpoint")
     parser.add_argument("--websockets", action="store_true",
-                        help="Train against remote grid nodes (federated only; not "
-                        "ported yet).")
+                        help="Train against remote grid nodes (federated only).")
     parser.add_argument("--verbose", action="store_true",
                         help="Verbose worker/metric output")
     parser.add_argument("--save_file", type=str,

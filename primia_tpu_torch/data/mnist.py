@@ -87,12 +87,10 @@ def label_subset(images: np.ndarray, labels: np.ndarray,
 
 
 def resize_to(images_u8: np.ndarray, resolution: int) -> np.ndarray:
-    """The digits at the training resolution: the identity at their own
-    28 px. The JAX package upscales with ``primia_tpu.native.resize_bilinear``,
-    whose port (``native.py``, over the same ``native/`` library) does not
-    exist yet, so any other resolution raises."""
+    """Upscale 28x28 digits to the training resolution (uint8), through
+    :func:`primia_tpu_torch.native.resize_bilinear`, as the JAX package's."""
     if images_u8.shape[1] == resolution:
         return images_u8
-    raise NotImplementedError(
-        f"MNIST at {resolution} px needs the bilinear resize of native.py, which is not "
-        "ported yet (ROADMAP queue 1, slice 6); train MNIST at 28 px")
+    from primia_tpu_torch import native
+
+    return native.resize_bilinear(images_u8, resolution, resolution)

@@ -22,7 +22,7 @@ no host round-trip.
 from __future__ import annotations
 
 import zlib
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +124,16 @@ def plain_fedavg(stacked_tree, weights):
     reference ``federated_avg``, ``syft/frameworks/torch/fl/utils.py:32``)."""
     return map_with_path(lambda path, leaf: plain_fedavg_leaf(path, leaf, weights),
                          stacked_tree)
+
+
+def fedavg_leaf(key: Optional[Sequence[int]], path: Path, leaf: torch.Tensor, weights,
+                frac_bits: int = fixed.DEFAULT_FRAC_BITS) -> torch.Tensor:
+    """One leaf of the federated average: plain FedAvg when ``key`` is
+    None (``--unencrypted_aggregation``), else secure aggregation with
+    shares seeded from ``key``."""
+    if key is None:
+        return plain_fedavg_leaf(path, leaf, weights)
+    return secure_fedavg_leaf(key, path, leaf, weights, frac_bits)
 
 
 def secure_average_stats(key: Sequence[int], per_node_values,

@@ -203,7 +203,7 @@ def model_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: AShar
 def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
                             precision_fractional: int = fixed.DEFAULT_FRAC_BITS,
                             protocol: str = "snn",
-                            batch_tile: Optional[int] = None) -> Callable:
+                            batch_tile: Optional[int] = None, seed: int = 0) -> Callable:
     """Returns ``predict(images_u8) -> logits`` over secret shares, called
     as the plain ``train/steps.py:build_predict_step``'s: (B, R, R, C)
     uint8 NHWC images in, (B, num_classes) float32 logits on ``device``
@@ -212,7 +212,9 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     Each call draws its own data-owner and dealer streams, numbered by the
     calls before it. ``batch_tile``: run the share-space forward
     ``batch_tile`` images at a time, each tile with its own streams; the
-    tail is padded with copies of the first image and sliced off."""
+    tail is padded with copies of the first image and sliced off. ``seed``
+    numbers the streams too (a grid node keeps one predict function a
+    request seed); 0 gives the streams above."""
     device = torch.device(device)
     check_protocol(protocol)
     frac = precision_fractional
@@ -222,7 +224,8 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     std_t = torch.as_tensor(np.asarray(std, np.float32), device=device).reshape(1, -1, 1, 1)
     model.eval()
     weights = {k: v.to(device) for k, v in folded_weights(model).items()}
-    shared = encode_and_share(S.stream(device, _MODEL), weights, frac)
+    salt = (seed,) if seed else ()
+    shared = encode_and_share(S.stream(device, _MODEL, *salt), weights, frac)
     calls = itertools.count()
 
     @torch.inference_mode()
@@ -232,8 +235,8 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
         if use_clahe:
             x = clahe(x, clip_limit=1.0, tiles=8, channels_first=True)
         x = (x - mean_t) / std_t
-        xs = S.share(S.stream(device, _DATA, call, idx), fixed.encode(x, frac))
-        E = MpcEngine(MpcContext(S.stream(device, _DEALER, call, idx), frac, protocol))
+        xs = S.share(S.stream(device, _DATA, call, idx, *salt), fixed.encode(x, frac))
+        E = MpcEngine(MpcContext(S.stream(device, _DEALER, call, idx, *salt), frac, protocol))
         return reveal_and_decode(model_forward(E, shared, model, xs, swap), frac).float()
 
     def predict(images_u8) -> torch.Tensor:

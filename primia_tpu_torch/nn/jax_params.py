@@ -111,25 +111,21 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
 
-def _leaves(tree):
-    """Leaves in ``jax.tree.leaves`` order: dict keys sorted, lists in order."""
-    for _, leaf in _paths(tree, ()):
-        yield leaf
-
-
 def param_leaves(module: nn.Module) -> List[Tuple[str, str]]:
     """``(parameter name, layout)`` for every leaf of the module's JAX
     ``params`` tree, in ``jax.tree.leaves`` order, which is the order of
     ``ravel_pytree``: the JAX optimizers store their moments as one flat
     vector in it. Layout ``"conv"`` (OIHW here, HWIO there), ``"linear"``
     ((out, in) here, (in, out) there) or ``"vector"``."""
-    flat: Dict[str, Dict[str, Tuple[str, str]]] = {}
+    flat: Dict[str, Dict[str, str]] = {}
+    layouts: Dict[str, str] = {}
     for name, m in module.named_modules():
         pre = f"{name}." if name else ""
         leaves = _module_params(m)
         if leaves:
-            flat[name] = {k: (pre + a, lay) for k, (a, lay) in leaves.items()}
-    return list(_leaves(_nest(flat)))
+            flat[name] = {k: pre + a for k, (a, _) in leaves.items()}
+            layouts.update((pre + a, lay) for a, lay in leaves.values())
+    return [(n, layouts[n]) for _, n in tree_paths(_nest(flat))]
 
 
 def _jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -199,16 +195,19 @@ def jax_leaf_paths(module: nn.Module) -> List[Tuple[tuple, str]]:
             params[name] = {k: pre + a for k, (a, _) in leaves.items()}
         if isinstance(m, Norm):
             state[name] = {k: pre + v for k, v in _STATE_LEAF.items()}
-    return list(_paths({"params": _nest(params), "state": _nest(state)}, ()))
+    return list(tree_paths({"params": _nest(params), "state": _nest(state)}))
 
 
-def _paths(tree, prefix: tuple):
-    """``(path, leaf)`` in ``jax.tree.leaves`` order."""
+def tree_paths(tree, prefix: tuple = ()):
+    """``(path, leaf)`` in ``jax.tree_util.tree_flatten_with_path`` order,
+    by JAX's pytree rules: dict keys sorted, lists and tuples in order,
+    None no leaf. The parameter trees here and the wire's trees
+    (``serve/node.py:_flatten``) are walked by it."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (k,))
-    elif isinstance(tree, list):
+            yield from tree_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _paths(v, prefix + (i,))
-    else:
+            yield from tree_paths(v, prefix + (i,))
+    elif tree is not None:
         yield prefix, tree

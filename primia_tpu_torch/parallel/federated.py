@@ -29,7 +29,9 @@ own noise), each node's epsilon is printed after each epoch, and with
 aggregation rounds is evaluated and saved (its raw parameters beside it,
 under ``raw_params``), as the JAX package's loop does.
 
-``--websockets`` (live grid nodes) needs ``serve/*`` and raises.
+``--websockets`` trains against live grid nodes instead
+(:func:`main_federated_ws`, ``serve/*``): each node runs its own steps on
+its own shard and only parameters cross the wire.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from __future__ import annotations
 import copy
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from pathlib import Path
 from typing import Iterator, List, Optional, Sequence
@@ -49,8 +52,8 @@ from primia_tpu_torch.config import Arguments, read_worker_config
 from primia_tpu_torch.data import (Batch, BatchLoader, ImageFolderDataset, calc_mean_std,
                                    device_prefetch, to_device_resident)
 from primia_tpu_torch.mpc import shares as S
-from primia_tpu_torch.mpc.aggregation import (node_weights, plain_fedavg_leaf,
-                                              secure_average_stats, secure_fedavg_leaf)
+from primia_tpu_torch.mpc.aggregation import (_keystr, fedavg_leaf, node_weights,
+                                              secure_average_stats)
 from primia_tpu_torch.nn import create_model
 from primia_tpu_torch.nn.jax_params import from_jax_tree, jax_leaf_paths, to_jax_tree
 from primia_tpu_torch.train import checkpoint as ckpt
@@ -163,11 +166,8 @@ class FederatedNodes:
     def aggregate(self, weights, key: Optional[Sequence[int]] = None) -> None:
         weights = node_weights(weights, self.device)
         for path, name in self.leaves:
-            stacked = torch.stack([t[name] for t in self._tensors])
-            if key is None:
-                out = plain_fedavg_leaf(path, stacked, weights)
-            else:
-                out = secure_fedavg_leaf(key, path, stacked, weights, self.frac_bits)
+            out = fedavg_leaf(key, path, torch.stack([t[name] for t in self._tensors]),
+                              weights, self.frac_bits)
             for t in self._tensors:
                 t[name].copy_(out)
 
@@ -184,15 +184,156 @@ def _cycle(loader: BatchLoader, device) -> Iterator[Batch]:
         yield from device_prefetch(loader, device)
 
 
+def aggregate_wire(results, worker_names, leaves, weights, key, frac_bits, device):
+    """Average the nodes' ``train_round`` replies leaf by leaf on ``device``
+    (plain FedAvg when ``key`` is None, else secure aggregation with
+    shares seeded from ``key``). ``leaves``: :func:`jax_leaf_paths` of the
+    model. Returns the average as the wire's flat trees, ``{"params":
+    {keystr: array}, "model_state": {...}}``, in the JAX layout."""
+    w = node_weights(weights, device)
+    out = {"params": {}, "model_state": {}}
+    for path, _ in leaves:
+        wire, key_str = ("params" if path[0] == "params" else "model_state"), _keystr(path[1:])
+        stacked = torch.stack([torch.from_numpy(np.asarray(results[n][wire][key_str]))
+                               for n in worker_names]).to(device)
+        out[wire][key_str] = fedavg_leaf(key, path, stacked, w, frac_bits).cpu().numpy()
+    return out
+
+
+def main_federated_ws(args: Arguments, verbose: bool = True, device="cuda",
+                      weights_dir: str = "model_weights",
+                      config_csv: str = "configs/websetting/config.csv") -> float:
+    """Federated training against live grid nodes (``--websockets``), as
+    ``primia_tpu/parallel/federated.py:main_federated_ws``: each round is
+    one ``train_round`` RPC a node, fanned out on threads; the node runs
+    ``sync_every_n_batch`` steps on its own shard and returns its
+    parameters, which are averaged here on ``device`` (secure aggregation,
+    or plain FedAvg under ``--unencrypted_aggregation``) and sent out
+    again. The nodes' normalization statistics are averaged in share
+    space; evaluation runs here on the local ``validation`` folder, and the
+    checkpoint has the JAX layout. Each aggregation draws fresh shares,
+    numbered across the whole run (the JAX loop numbers them by the round
+    within an epoch, so its masks repeat from epoch to epoch)."""
+    from primia_tpu_torch.serve.client import clients_from_csv
+    from primia_tpu_torch.serve.node import _flatten, _unflatten
+
+    device = resolve_device(device) if isinstance(device, str) else torch.device(device)
+    timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    exp_name = "federated_{:s}_{:s}".format(args.data_dir.replace("/", ""), timestamp)
+    mon = Monitor(exp_name) if args.visdom else NullMonitor()
+    if args.visdom and verbose:
+        print(f"Live dashboard: {mon.html}")
+    clients = {w: c for w, c in clients_from_csv(config_csv).items()
+               if w != "crypto_provider"}
+    worker_names = list(clients)
+    n_nodes = len(worker_names)
+
+    frac = args.precision_fractional
+    means = [c.get_obj("#datamean") for c in clients.values()]
+    stds = [c.get_obj("#datastd") for c in clients.values()]
+    mean = secure_average_stats((args.seed, 1), means, frac, device).cpu().numpy()
+    std = secure_average_stats((args.seed, 2), stds, frac, device).cpu().numpy()
+
+    channels = 1 if not args.pretrained else 3
+    val_ds = ImageFolderDataset(Path(args.data_dir) / "validation", channels=channels)
+    val_imgs, val_labels = val_ds.materialize(args.inference_resolution)
+    class_names = val_ds.classes
+    num_classes = len(class_names)
+
+    torch.manual_seed(args.seed)
+    model = create_model(args, num_classes=num_classes, device="cpu").to(device)
+    leaves = jax_leaf_paths(model)
+    params, state = (_flatten(t) for t in to_jax_tree(model))
+    eval_step = build_eval_step(model, args, mean, std, None, device)
+    val_loader = BatchLoader(to_device_resident(val_imgs, device), val_labels,
+                             max(args.test_batch_size, 64), shuffle=False, pad_final=True)
+    scheduler = make_scheduler(args)
+
+    matthews_scores, model_paths = [], []
+    os.makedirs(weights_dir, exist_ok=True)
+    steps_round = max(args.sync_every_n_batch, 1)
+    reps = max(args.repetitions_dataset, 1)
+    agg_round = 0
+    with ThreadPoolExecutor(max_workers=n_nodes) as pool:
+        for epoch in range(1, args.epochs + 1):
+            lr = scheduler.get_lr(epoch - 1)
+            counts, losses, rounds = {}, [], 1
+            for r in range(1000):  # bounded by the largest shard
+                msg = {"type": "train_round", "args": args.to_json(), "params": params,
+                       "model_state": state, "n_steps": steps_round, "lr": lr,
+                       "seed": args.seed + epoch * 1000 + r, "num_classes": num_classes}
+                results = {}
+                for w, out in zip(worker_names,
+                                  pool.map(lambda c: c.send(msg), clients.values())):
+                    if "error" in out:
+                        raise RuntimeError(f"{w}: {out['error']}")
+                    results[w] = out
+                    counts[w] = out["n_batches"] * reps
+                    losses.append(out["loss"])
+                total = sum(counts.values())
+                agg_w = (np.array([counts[w] / total for w in worker_names])
+                         if args.weighted_averaging else np.full(n_nodes, 1.0 / n_nodes))
+                agg_round += 1
+                key = None if args.unencrypted_aggregation else (args.seed, 777, agg_round)
+                avg = aggregate_wire(results, worker_names, leaves, agg_w, key, frac, device)
+                params, state = avg["params"], avg["model_state"]
+                rounds = max(1, int(np.ceil(max(counts.values()) / steps_round)))
+                if r + 1 >= rounds:
+                    break
+            if verbose:
+                print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, float(np.mean(losses))))
+            if args.differentially_private and verbose:
+                # nodes clip and noise locally; each node's account from what
+                # crossed the wire: sampling rate 1/n_batches, rounds *
+                # steps_round steps an epoch
+                per_node = []
+                for w in worker_names:
+                    nb = max(int(results[w]["n_batches"]), 1)
+                    eps, alpha = rdp_epsilon(noise_multiplier=args.noise_multiplier,
+                                             sample_rate=min(1.0 / nb, 1.0),
+                                             steps=epoch * rounds * steps_round,
+                                             delta=args.target_delta)
+                    per_node.append((w, eps, alpha))
+                worst = max(per_node, key=lambda t: t[1])
+                print("(eps = {:.2f}, delta = {}) at alpha = {} [worst node: {}; "
+                      "per-node eps: {}]".format(worst[1], args.target_delta, worst[2],
+                                                 worst[0], ", ".join(
+                                                     f"{w}={e:.2f}" for w, e, _ in per_node)))
+            if (epoch % args.test_interval) == 0:
+                model.load_state_dict(from_jax_tree(_unflatten(params), _unflatten(state)))
+                _, matthews = run_eval(eval_step, val_loader, epoch, class_names, verbose)
+                model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
+                    exp_name, epoch * reps))
+                ckpt.save_model(model_path, epoch=epoch, model=model, args=args,
+                                val_mean_std=(mean, std),
+                                opt_state={w: None for w in worker_names})
+                matthews_scores.append(matthews)
+                model_paths.append(model_path)
+    for c in clients.values():
+        c.close()
+
+    if not matthews_scores:
+        if verbose:
+            print(f"Nothing to do: no epochs ran (epochs={args.epochs})")
+        return 0.0
+    rev = np.array(matthews_scores)[::-1]
+    best_idx = int(np.argmax(rev))
+    highest = len(rev) - best_idx - 1
+    shutil.copyfile(model_paths[highest], os.path.join(weights_dir, f"final_{exp_name}.pt"))
+    if args.save_file:
+        ckpt.save_config_results(args, float(rev[best_idx]), timestamp)
+    for p in model_paths:
+        os.remove(p)
+    return float(rev[best_idx])
+
+
 def main_federated(args: Arguments, verbose: bool = True, device="cuda",
                    weights_dir: str = "model_weights") -> float:
     """Trains the simulated federation as the config says; returns the
     best validation objective (100 * MCC). ``device`` is ``"cuda"`` (the
     default; raises without a card) or ``"cpu"``."""
     if args.websockets:
-        raise NotImplementedError(
-            "federated training against live grid nodes (--websockets) needs serve/*, "
-            "which is not ported yet (ROADMAP queue 1, slice 6)")
+        return main_federated_ws(args, verbose=verbose, device=device, weights_dir=weights_dir)
     device = resolve_device(device) if isinstance(device, str) else torch.device(device)
 
     timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")

@@ -55,8 +55,11 @@ def test_label_subset_matches_jax():
 
 
 def test_resize_to_is_the_identity_at_28_px_and_names_its_port_elsewhere():
+    """The identity at 28 px; elsewhere the port's ``native.resize_bilinear``,
+    byte for byte the JAX package's upscale."""
     imgs = np.random.default_rng(2).integers(0, 256, (3, 28, 28, 1), dtype=np.uint8)
     assert mnist.resize_to(imgs, 28) is imgs
     assert jmnist.resize_to(imgs, 28) is imgs
-    with pytest.raises(NotImplementedError, match="native.py"):
-        mnist.resize_to(imgs, 224)
+    got = mnist.resize_to(imgs, 224)
+    assert got.shape == (3, 224, 224, 1)
+    assert got.tobytes() == jmnist.resize_to(imgs, 224).tobytes()

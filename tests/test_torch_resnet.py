@@ -134,8 +134,9 @@ def test_models_not_yet_ported_say_so(name, tmp_path, monkeypatch):
     """Both families build (their parity with the JAX package is
     ``tests/test_torch_models.py``); what the port still lacks for them says
     so: VGG-16's ImageNet import warns with the JAX package's words and
-    keeps the init; SimpleConv refuses resolutions it has no variant for,
-    and MNIST above 28 px names the missing port of ``native.py``."""
+    keeps the init; SimpleConv refuses resolutions it has no variant for.
+    MNIST above 28 px upscales through ``native.py`` (ported since the
+    grid; byte for byte in ``tests/test_torch_pate_native.py``)."""
     from primia_tpu_torch.data.mnist import resize_to
 
     model = create_model(Arguments(model=name, inference_resolution=RES, train_resolution=28),
@@ -154,5 +155,4 @@ def test_models_not_yet_ported_say_so(name, tmp_path, monkeypatch):
     else:
         with pytest.raises(ValueError, match="28/224/512"):
             create_model(Arguments(model=name, train_resolution=RES), device="cpu")
-        with pytest.raises(NotImplementedError, match="native.py"):
-            resize_to(np.zeros((1, 28, 28, 1), np.uint8), 224)
+        assert resize_to(np.zeros((1, 28, 28, 1), np.uint8), 224).shape == (1, 224, 224, 1)

@@ -452,9 +452,11 @@ def test_train_cli_resumes_model_and_optimizer(tmp_path, fixture_dir, monkeypatc
 def test_train_cli_defaults_to_cuda_and_ports_only_the_local_path(tmp_path, fixture_dir,
                                                                    monkeypatch, capsys):
     """The CLI defaults to cuda and raises without a card; ``--websockets``
-    (slice 6) raises; DP-SGD runs on the CPU fixture, locally and on the
-    simulated federation (the fixture's train folder as one worker), and
-    prints its epsilon lines."""
+    trains against the live nodes of the working directory's
+    ``configs/websetting/config.csv`` and, without one, says so (the grid's
+    runs are ``tests/test_torch_serve.py``); DP-SGD runs on the CPU
+    fixture, locally and on the simulated federation (the fixture's train
+    folder as one worker), and prints its epsilon lines."""
     from primia_tpu_torch.cli import train
     from primia_tpu_torch.train import loop
 
@@ -465,7 +467,7 @@ def test_train_cli_defaults_to_cuda_and_ports_only_the_local_path(tmp_path, fixt
     argv = ["--config", str(ini), "--data_dir", str(fixture_dir / "train")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(argv)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(FileNotFoundError, match="configs/websetting/config.csv"):
         train.main(argv + ["--train_federated", "--websockets", "--device", "cpu"])
     capsys.readouterr()
     args = Arguments.from_ini(ini, cmd_args=argparse.Namespace(
