@@ -292,12 +292,42 @@ Phases, each reported on its own line; any failure exits nonzero:
                   under the profiler; the transport that carried each verb
                   (a frame over 1 MiB is refused on ws and goes by HTTP) and
                   whether the native library loaded.
+22. hpo           slice 8's main path, the hyperparameter search: the
+                  find_config CLI in process on cuda at its own widths
+                  (ResNet-18, 224 px, batch 200, pretrained = yes with no
+                  ImageNet file: the He init), each trial a full train run
+                  from a study file seeded with five finished trials whose
+                  objective at step 5 is 100. Locally on phase 7's DICOMs (3
+                  steps an epoch): a 5-epoch trial pruned at step 5 through
+                  the loop's hook, a 1-epoch trial, a 1-epoch trial whose
+                  categoricals all answer True (all 17 augmentation flags
+                  and mixup on; every loss finite); then one --federated
+                  trial with secure aggregation on phase 15's shards, from a
+                  work directory whose configs/websetting/config.csv names a
+                  crypto provider. Counters set to 0 around each trial: K1,
+                  K2 and CLAHE exactly as the trial's recorded draws ask
+                  (two K1 passes for a two-pass-safe affine range, else one
+                  K2 gather; two K1 passes for the dense warp; CLAHE once a
+                  step). Each trial's state, value, seconds and launches; a
+                  failed trial fails the phase.
+23. warm          the warm CLI on the canonical train INI and phase 7's data
+                  into a fresh build directory: the six libraries built at
+                  once, one train step at batch 200 and one eval step, each
+                  line's seconds; then, with nvcc barred, a train step on a
+                  new model loads its libraries from that directory.
+24. profile       utils.profile around 5 of phase 7's train steps at batch
+                  200, then profiler over the trace: the top ops' table
+                  (``.roofline`` beside --profile_out), total_ms, floor_ms
+                  and efficiency against the card's roofs, the share of
+                  device time under an aten op, each step's device window
+                  and the gaps; the parser's device total within 2% of the
+                  profiler's key_averages() total over the same steps.
 21. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
                   K8, the noise phase for K5; every path's counts beside
-                  them, K1 and CLAHE also on the federated path, CLAHE on the
+                  them, K1 and CLAHE also on the federated and hpo paths, CLAHE on the
                   snn encrypted CLI, K4 on the group model's fss CLI, K1 on
                   the DP and federated DP CLIs, K7 on the switched ghost and
                   microbatched steps; K1, CLAHE, K4, K7 and the BN launches
@@ -314,7 +344,8 @@ of phase 14 and the federated step beside it, the DP steps', with
 ``.train``, ``.encrypt``, ``.encrypt_snn``, ``.encrypt_group_{fss,snn}``,
 ``.train_optin.{default,switched}``, ``.federated`` or
 ``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
-Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19, 20.
+Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19, 20,
+22, 23, 24, and 21's line last.
 Earlier phases run shallower to make room for 17-19: phases 7 and 14 time 12
 steps (24 before), phase 16's DP steps 3 after 1 warm-up (6 after 2).
 """
@@ -353,12 +384,12 @@ KERNELS = {
     "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
               "also": ("federated", "encrypt_snn", "vgg_serve", "vgg_train", "vgg_encrypt",
                        "vgg_encrypt_snn", "conv_serve", "conv_train", "conv_encrypt",
-                       "conv_encrypt_snn", "grid_serve", "grid_federated"),
+                       "conv_encrypt_snn", "grid_serve", "grid_federated", "hpo"),
               "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
                   "also": ("federated", "dp", "dp_federated", "vgg_train", "conv_train",
-                           "mnist", "conv_dp", "conv_dp_federated", "grid_federated"),
+                           "mnist", "conv_dp", "conv_dp_federated", "grid_federated", "hpo"),
                   "kernel": ("tent_rows_kernel",),
                   "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
@@ -3557,6 +3588,256 @@ def phase_grid(torch, seed, work):
 
 
 
+HPO_SEEDED_STEP = 5  # the pruner's default warm-up (train/hpo.py: n_warmup_steps)
+
+
+def hpo_launches(args, steps):
+    """The warp and CLAHE launches of ``steps`` train steps of a trial's
+    config (``ops/augment.py``): RandomAffine two K1 passes when
+    ``twopass_safe`` holds for its ranges, else one K2 gather; the fused
+    dense warp two K1 passes when a distortion flag is on; CLAHE once."""
+    from primia_tpu_torch.ops.image import twopass_safe
+
+    affine = bool(args.rotation or args.translate or args.scale or args.shear)
+    safe = twopass_safe(args.rotation, args.shear, args.scale)
+    dense = args.elastic or args.optical_distortion or args.grid_distortion
+    return idle_launches(tent_rows=steps * (2 * (affine and safe) + 2 * dense),
+                         tent_bilinear=steps * (affine and not safe),
+                         clahe=steps * bool(args.clahe))
+
+
+def phase_hpo(torch, seed, work, ctx):
+    """Phase 22: slice 8's main path, the hyperparameter search
+    (``python -m primia_tpu_torch.cli.find_config``) on the card at the
+    CLI's widths: ResNet-18 at 224 px, batch 200, pretrained = yes (no
+    ImageNet file: the He init, 3 channels), each trial a full train run.
+    Locally on phase 7's 600 + 60 DICOMs (3 steps an epoch), from a study
+    file seeded with five finished trials whose objective at step 5 is
+    100: the first trial (5 epochs) is pruned there through the loop's
+    hook, the second (1 epoch) completes; then a trial whose categoricals
+    all answer True (every augmentation flag and mixup on), its losses
+    finite; then one --federated trial with secure aggregation on phase
+    15's shards from a work directory whose configs/websetting/config.csv
+    names the crypto provider. Counters set to 0 around each trial: K1, K2
+    and CLAHE as the trial's draws ask (``hpo_launches``). Any trial not
+    complete or pruned fails the phase. Returns the launches summed."""
+    import functools
+
+    import numpy as np
+
+    from primia_tpu_torch.cli import find_config
+    from primia_tpu_torch.train import loop
+    from primia_tpu_torch.train.hpo import Study, Trial, TrialRecord
+
+    class AllOn(Trial):
+        def suggest_categorical(self, name, choices):
+            return self._suggest(name, lambda rng, base=None: True)
+
+    class AllOnStudy(Study):
+        def ask(self):
+            return AllOn(self, super().ask()._rec)
+
+    hpo = work / "hpo"
+    (hpo / "configs" / "websetting").mkdir(parents=True)
+    shutil.copy(ROOT / "configs" / "websetting" / "config.csv",
+                hpo / "configs" / "websetting" / "config.csv")
+    storage = hpo / "study.json"
+    storage.write_text(json.dumps({"trials": [
+        {"number": i, "params": {}, "intermediate": {str(HPO_SEEDED_STEP): 100.0},
+         "value": 100.0, "state": "complete"} for i in range(5)]}))
+    # the CLI's defaults, spelt out
+    common = ["--storage", str(storage), "--resolution", str(RES), "--batch_size",
+              str(TRAIN_BATCH), "--device", "cuda"]
+    local = ["--data_dir", str(ctx["root"] / "train"), *common]
+    runs = [("pruned", Study, local + ["--epochs", str(HPO_SEEDED_STEP)]),
+            ("complete", Study, local + ["--epochs", "1"]),
+            ("all_flags", AllOnStudy, local + ["--epochs", "1"]),
+            ("federated", Study, ["--federated", "--epochs", "3", "--data_dir",
+                                  str(work / "federated"), *common])]
+    steps_per_epoch = ctx["steps"]
+    node_batches = [-(-sum(n) // TRAIN_BATCH) for n in FED_PER_CLASS]
+    losses = []
+    select = loop.select_train_step
+
+    def recording_select(*a, **kw):
+        step = select(*a, **kw)
+
+        def run(*b):
+            loss = step(*b)
+            losses.append(loss)
+            return loss
+
+        return run
+
+    total = idle_launches()
+    say("hpo", model="resnet-18", resolution=RES, batch=TRAIN_BATCH, trials=len(runs),
+        seeded_trials=5, seeded_step=HPO_SEEDED_STEP)
+    for i, (name, study_cls, argv) in enumerate(runs):
+        find_config.Study = functools.partial(study_cls, seed=seed + i)
+        loop.select_train_step = recording_select
+        losses.clear()
+        try:
+            _, _, secs, launches = run_cli(torch, find_config, ["--n_trials", "1", *argv], hpo,
+                                           work / f"hpo_{name}.log")
+        finally:
+            find_config.Study, loop.select_train_step = Study, select
+        rec = json.loads(storage.read_text())["trials"][-1]
+        check(rec["state"] in ("complete", "pruned"), f"hpo {name}: trial {rec}")
+        # the trial's Arguments, replayed from its recorded draws
+        args = find_config.build_args(Trial(None, TrialRecord(rec["number"], rec["params"])),
+                                      find_config.build_parser().parse_args(argv))
+        if name == "federated":
+            reps = args.repetitions_dataset
+            steps = args.epochs * reps * sum(node_batches)
+            check(args.epochs >= 1 and not args.unencrypted_aggregation,
+                  f"hpo federated: {args.epochs} epochs, secure {not args.unencrypted_aggregation}")
+        else:
+            epochs = len(rec["intermediate"])
+            steps = epochs * steps_per_epoch
+            check(all(bool(torch.isfinite(l)) for l in losses) and len(losses) == steps,
+                  f"hpo {name}: {len(losses)} losses for {steps} steps, finite "
+                  f"{[bool(torch.isfinite(l)) for l in losses]}")
+        want = hpo_launches(args, steps)
+        check(launches == want, f"hpo {name}: launches {launches}, expected {want}")
+        if name == "pruned":
+            check(rec["state"] == "pruned" and epochs == HPO_SEEDED_STEP,
+                  f"hpo: the seeded study did not prune: {rec}")
+        if name == "all_flags":
+            flags = [getattr(args, f) for f in find_config.ALBU_FLAGS]
+            check(all(flags) and args.mixup and launches["clahe"] == steps,
+                  f"hpo all_flags: flags {flags}, mixup {args.mixup}")
+        for k, v in launches.items():
+            total[k] += v
+        say("hpo", trial=name, state=rec["state"], value=rec["value"], seconds=f"{secs:.4f}",
+            steps=steps, epochs=args.epochs, repetitions=args.repetitions_dataset,
+            intermediate=json.dumps(rec["intermediate"]),
+            k1=launches["tent_rows"], k2=launches["tent_bilinear"], k3=launches["clahe"])
+    states = [t["state"] for t in json.loads(storage.read_text())["trials"][5:]]
+    check(states.count("failed") == 0 and "pruned" in states, f"hpo states {states}")
+    say("hpo", states=json.dumps(states), launches=json.dumps(total))
+    return total
+
+
+def _library_caches():
+    from primia_tpu_torch.ops import (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent,
+                                      cuda_wgrad)
+
+    return [m._lib for m in (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent, cuda_wgrad)]
+
+
+def phase_warm(torch, seed, work, ctx):
+    """Phase 23: ``python -m primia_tpu_torch.cli.warm`` on the canonical
+    train INI and phase 7's data, in process, into a fresh build directory:
+    the six libraries built at once, one train step at batch 200 and one
+    eval step at batch 64, each line's seconds. Then, with nvcc barred, a
+    train step on a new model finds every library already built there."""
+    import numpy as np
+
+    from primia_tpu_torch.cli import warm
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.ops import _build
+    from primia_tpu_torch.train.optim import make_optimizer
+    from primia_tpu_torch.train.steps import build_train_step
+
+    fresh = work / "warm_build"
+    saved_dir, saved_loaded = _build.BUILD_DIR, dict(_build._loaded)
+
+    def forget():
+        _build._loaded.clear()
+        for cache in _library_caches():
+            cache.cache_clear()
+
+    nvcc_path = _build.nvcc_path
+    try:
+        _build.BUILD_DIR = fresh
+        forget()
+        _, out, secs, _ = run_cli(torch, warm, ["--config", str(CONFIG), "--data_dir",
+                                                str(ctx["root"] / "train")], work,
+                                  work / "warm.log")
+        lines = out.strip().splitlines()
+        say("warm", config=CONFIG.relative_to(ROOT), build_dir=fresh.relative_to(ROOT),
+            seconds=f"{secs:.4f}", lines=json.dumps(lines[-4:]))
+        check(lines[-1] == f"warm: {len(_build.source_names())} kernel libraries built, "
+              "2 programs run", f"warm printed {lines}")
+        built = {n: _build.library_path(n) for n in _build.source_names()}
+        check(all(p.is_file() for p in built.values()), f"warm left {built} unbuilt")
+        forget()
+
+        def barred(*a, **kw):
+            raise PhaseError("a library was built again after warm")
+
+        _build.nvcc_path = barred
+        args = Arguments.from_ini(ctx["ini"])
+        torch.manual_seed(seed)
+        dev = torch.device("cuda")
+        model = create_model(args, num_classes=3, device="cpu").to(dev)
+        step = build_train_step(model, make_optimizer(args, model), args, ctx["mean"],
+                                ctx["std"], device=dev)
+        x, y = ctx["imgs"][:TRAIN_BATCH], ctx["labels"][:TRAIN_BATCH]
+        loss = float(step(torch.Generator(device=dev).manual_seed(seed), x, y,
+                          np.ones(len(y), np.float32), 1e-4))
+        loaded = {n: Path(lib._name).parent == fresh for n, lib in _build._loaded.items()}
+        check(loaded and all(loaded.values()) and "tent" in loaded and "clahe" in loaded,
+              f"train step after warm loaded {loaded}")
+        check(loss == loss, f"train step after warm: loss {loss}")
+        say("warm", after="train_step", loss=loss, loaded_from_warm=json.dumps(loaded))
+    finally:
+        _build.nvcc_path = nvcc_path
+        _build.BUILD_DIR = saved_dir
+        _build._loaded.clear()
+        _build._loaded.update(saved_loaded)
+        for cache in _library_caches():
+            cache.cache_clear()
+
+
+def phase_profile(torch, seed, work, profile_out, ctx, card):
+    """Phase 24: ``utils.profile`` around 5 of phase 7's train steps at
+    batch 200, each in a ``record_function`` range, then ``profiler`` over
+    the trace: the top ops' table (beside ``profile_out`` as
+    ``.roofline``), total_ms, floor_ms and efficiency against the card's
+    roofs (``profiler.device_roofs``), each step's device window and the
+    gaps between them. The parser's device total must be within 2% of the
+    ``key_averages()`` device total (``device_ms_by_category``, phase 7's
+    sum) over the same steps."""
+    from primia_tpu_torch import profiler, utils
+
+    run = ctx["run"]
+    for i in range(2):
+        run(i)  # warm
+    logdir = work / "trace"
+    with contextlib.redirect_stdout(io.StringIO()):
+        with utils.profile(str(logdir)) as prof:
+            for i in range(5):
+                with torch.profiler.record_function(f"step#{i}"):
+                    run(i)
+    trace = str(logdir / utils.TRACE_FILE)
+    avgs = [e for e in prof.key_averages() if not e.key.startswith("step#")]
+    ka_total = sum(device_ms_by_category(avgs, 1).values())
+    ops = profiler.parse_trace(trace)
+    total = sum(o.total_ms for o in ops)
+    check(ka_total > 0 and abs(total - ka_total) <= 0.02 * ka_total,
+          f"profile: parser device total {total} ms, key_averages {ka_total} ms")
+    hbm, tflops = profiler.device_roofs(torch.cuda.get_device_name(0))
+    r = profiler.roofline(ops, hbm_gbs=hbm, mxu_tflops=tflops, top=30)
+    path = profile_out.with_name(profile_out.stem + ".roofline" + profile_out.suffix)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(r["table"] + "\n")
+    windows = profiler.module_executions(trace, "step#")
+    check(len(windows) == 5, f"profile: {len(windows)} step windows")
+    gaps = [b[1] - (a[1] + a[2]) for a, b in zip(windows, windows[1:])]
+    under_aten = sum(o.total_ms for o in ops if o.name.startswith("aten::")) / total
+    say("profile", card=json.dumps(card), steps=5, batch=TRAIN_BATCH,
+        total_ms=f"{r['total_ms']:.4f}", floor_ms=f"{r['floor_ms']:.4f}",
+        efficiency=f"{r['efficiency']:.4f}", conv_tflop=f"{r['conv_tflops']:.4f}",
+        key_averages_ms=f"{ka_total:.4f}", rel_diff=f"{abs(total - ka_total) / ka_total:.6f}",
+        roofs=json.dumps([hbm, tflops]), ops=len(ops),
+        share_under_an_aten_op=f"{under_aten:.4f}")
+    say("profile", step_windows_ms=json.dumps([round(w[2], 4) for w in windows]),
+        gaps_ms=json.dumps([round(g, 4) for g in gaps]))
+    print("\n".join(r["table"].splitlines()[:16]), flush=True)
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
@@ -3644,6 +3925,12 @@ def main(argv=None) -> int:
         lap("conv_dp")
         by_path.update(phase_grid(torch, opts.seed, work))
         lap("grid")
+        by_path["hpo"] = phase_hpo(torch, opts.seed, work, ctx)
+        lap("hpo")
+        phase_warm(torch, opts.seed, work, ctx)
+        lap("warm")
+        phase_profile(torch, opts.seed, work, profile_out, ctx, card)
+        lap("profile")
         say("seconds", **seconds, total=round(sum(seconds.values()), 1))
         for name, meta in KERNELS.items():
             for path in (meta["path"], *meta.get("also", ())):

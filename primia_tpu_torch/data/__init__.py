@@ -9,6 +9,8 @@ from primia_tpu_torch.data.datasets import (  # noqa: F401
     CombinedLoader,
     Dataset,
     ImageFolderDataset,
+    ImageFolderFromCSV,
+    PPPP,
     PathDataset,
     Subset,
     pil_loader,

@@ -1,8 +1,9 @@
 """Host-side image ingest and dataset classes.
 
 Port of ``primia_tpu/data/datasets.py`` (``CombinedLoader``,
-``ImageFolderDataset``, ``PathDataset``, ``Subset``, ``random_split`` and
-the materialize cache). Decode (PIL, or the DICOM parser in ``.dicom``) and
+``ImageFolderDataset``, the label-CSV datasets ``ImageFolderFromCSV`` and
+``PPPP`` (read with the ``csv`` module), ``PathDataset``, ``Subset``,
+``random_split`` and the materialize cache). Decode (PIL, or the DICOM parser in ``.dicom``) and
 square resize to ``inference_resolution`` run once, in a thread pool,
 into one contiguous uint8 ``(N, R, R, C)`` array; the predict step moves
 batches of it to the device.
@@ -13,10 +14,11 @@ resolution needs no image library.
 
 from __future__ import annotations
 
+import csv
 import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -216,6 +218,69 @@ class ImageFolderDataset(Dataset):
                     labels.append(self.class_to_idx[cls])
         self.paths = paths
         self.labels = np.asarray(labels, np.int32)
+
+
+def _read_csv(path) -> List[dict]:
+    """The rows of a CSV file with a header, as dicts of strings (the
+    card's machine has no pandas)."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        return list(csv.DictReader(f))
+
+
+class ImageFolderFromCSV(Dataset):
+    """Images in one folder, labels from the pediatric-pneumonia metadata
+    CSV (``primia_tpu/data/datasets.py:ImageFolderFromCSV``, reference
+    ``torchlib/dataloader.py:317-368``): Normal -> 0, bacterial -> 1,
+    viral -> 2, unknown rows dropped; the folder's files in sorted order,
+    and a file the CSV does not name is an error."""
+
+    def __init__(self, csv_path, img_folder_path, channels: int = 1):
+        self.channels = channels
+        self.classes = ["normal", "bacterial pneumonia", "viral pneumonia"]
+
+        def to_class(row):
+            if row["Label"] == "Normal":
+                return 0
+            if row["Label"] == "Pnemonia":  # so spelt in the original CSV
+                if row["Label_1_Virus_category"] == "bacteria":
+                    return 1
+                if row["Label_1_Virus_category"] == "Virus":
+                    return 2
+            return -1
+
+        lab = {row["X_ray_image_name"]: to_class(row) for row in _read_csv(csv_path)}
+        paths, labels = [], []
+        for f in sorted(os.listdir(img_folder_path)):
+            if f.startswith("."):
+                continue
+            if f not in lab:
+                raise AssertionError(f"img label not known {f}")
+            if lab[f] == -1:
+                continue
+            paths.append(os.path.join(img_folder_path, f))
+            labels.append(lab[f])
+        self.paths = paths
+        self.labels = np.asarray(labels, np.int32)
+
+
+class PPPP(Dataset):
+    """Label-CSV dataset over ``data/{train,test}``
+    (``primia_tpu/data/datasets.py:PPPP``, reference ``PPPP``,
+    ``torchlib/dataloader.py:371-425``): the rows of the CSV whose
+    ``Dataset_type`` is TRAIN or TEST, in the file's order."""
+
+    def __init__(self, label_path="data/Labels.csv", train=False, channels: int = 1):
+        self.channels = channels
+        self.classes = ["normal", "bacterial pneumonia", "viral pneumonia"]
+        rows = [r for r in _read_csv(label_path)
+                if r["Dataset_type"] == ("TRAIN" if train else "TEST")]
+        base = os.path.join(os.path.dirname(str(label_path)), "train" if train else "test")
+        self.paths = [os.path.join(base, r["X_ray_image_name"]) for r in rows]
+        self.labels = np.asarray([float(r["Numeric_Label"]) for r in rows]).astype(np.int32)
+
+    def get_class_occurances(self) -> Dict[int, int]:
+        vals, counts = np.unique(self.labels, return_counts=True)
+        return dict(zip(vals.tolist(), counts.tolist()))
 
 
 class Subset(Dataset):

@@ -87,6 +87,8 @@ def _channel_shape(x: AShare, n_channels: int):
 
 
 class MpcEngine:
+    name = "mpc"
+
     def __init__(self, ctx: MpcContext):
         self.ctx = ctx
 

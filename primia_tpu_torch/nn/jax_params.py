@@ -22,7 +22,7 @@ a dict with string keys otherwise (SimpleConv's ``bns``: ``"0"``, ``"1"``,
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -164,18 +164,24 @@ def unflatten_jax(flat, leaves: List[Tuple[str, str]],
     return out
 
 
-def to_jax_tree(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def to_jax_tree(module: nn.Module, leaf: Optional[Callable] = None
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The port's model -> JAX ``(params, state)`` trees that the JAX
-    package's ``forward`` and checkpoint loader read."""
-    params: Dict[str, Dict[str, np.ndarray]] = {}
-    state: Dict[str, Dict[str, np.ndarray]] = {}
+    package's ``forward`` and checkpoint loader read. ``leaf`` maps each
+    tensor, already in the JAX layout, to its leaf; by default a numpy
+    copy on the host (``train/checkpoint.py:snapshot`` keeps a copy on the
+    tensor's device instead)."""
+    p_leaf = leaf or (lambda t: np.ascontiguousarray(_np(t)))
+    s_leaf = leaf or _np
+    params: Dict[str, Dict[str, Any]] = {}
+    state: Dict[str, Dict[str, Any]] = {}
     for name, m in module.named_modules():
         leaves = _module_params(m)
         if leaves:
-            params[name] = {k: np.ascontiguousarray(_np(_jax_layout(getattr(m, a), lay)))
+            params[name] = {k: p_leaf(_jax_layout(getattr(m, a), lay))
                             for k, (a, lay) in leaves.items()}
         if isinstance(m, Norm):
-            state[name] = {k: _np(getattr(m, a)) for k, a in _STATE_LEAF.items()}
+            state[name] = {k: s_leaf(getattr(m, a)) for k, a in _STATE_LEAF.items()}
     return _nest(params), _nest(state)
 
 

@@ -57,7 +57,7 @@ from primia_tpu_torch.mpc.aggregation import (_keystr, fedavg_leaf, node_weights
 from primia_tpu_torch.nn import create_model
 from primia_tpu_torch.nn.jax_params import from_jax_tree, jax_leaf_paths, to_jax_tree
 from primia_tpu_torch.train import checkpoint as ckpt
-from primia_tpu_torch.train.loop import run_eval
+from primia_tpu_torch.train.loop import report_or_prune, run_eval
 from primia_tpu_torch.train.losses import calc_class_weights
 from primia_tpu_torch.train.lr import make_scheduler
 from primia_tpu_torch.train.dp import parameter_ema, rdp_epsilon, select_train_step
@@ -328,10 +328,13 @@ def main_federated_ws(args: Arguments, verbose: bool = True, device="cuda",
 
 
 def main_federated(args: Arguments, verbose: bool = True, device="cuda",
-                   weights_dir: str = "model_weights") -> float:
+                   weights_dir: str = "model_weights", optuna_trial=None) -> float:
     """Trains the simulated federation as the config says; returns the
     best validation objective (100 * MCC). ``device`` is ``"cuda"`` (the
-    default; raises without a card) or ``"cpu"``."""
+    default; raises without a card) or ``"cpu"``. ``optuna_trial`` gets
+    each evaluation's objective at step ``epoch * repetitions_dataset``
+    and may prune the run (``train/loop.py:report_or_prune``); as in the
+    JAX package, ``--websockets`` runs take none."""
     if args.websockets:
         return main_federated_ws(args, verbose=verbose, device=device, weights_dir=weights_dir)
     device = resolve_device(device) if isinstance(device, str) else torch.device(device)
@@ -436,53 +439,58 @@ def main_federated(args: Arguments, verbose: bool = True, device="cuda",
     matthews_scores, model_paths = [], []
     os.makedirs(weights_dir, exist_ok=True)
     reps = max(args.repetitions_dataset, 1)
-    for epoch in range(start_at_epoch, args.epochs + 1):
-        lr = scheduler.get_lr(epoch - 1)
-        if not args.keep_optim_dict:
-            nodes.reset_optimizers()
-        losses = []  # device tensors until the epoch's end
-        for batch_idx in range(max(num_batches)):
-            batches = [next(feeds[i]) if batch_idx < num_batches[i] else None
-                       for i in range(n_nodes)]
-            losses += [loss for loss in nodes.step(batches, lr) if loss is not None]
-            if batch_idx > 0 and batch_idx % args.sync_every_n_batch == 0:
-                aggregate()
-        aggregate()
-        epoch_loss = float(torch.stack(losses).double().mean())
-        mon.add_scalar("train_loss", epoch, epoch_loss)
-        mon.add_scalar("lr", epoch, float(lr))
-        if verbose:
-            print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, epoch_loss))
-        if args.differentially_private and verbose:
-            # per-node accounting: each node's mechanism touches only its
-            # own shard; the line leads with the worst node
-            per_node = []
-            for w, imgs, nb in zip(worker_names, node_imgs, num_batches):
-                eps, alpha = rdp_epsilon(
-                    noise_multiplier=args.noise_multiplier,
-                    sample_rate=min(args.batch_size / max(len(imgs), 1), 1.0),
-                    steps=epoch * nb, delta=args.target_delta)
-                per_node.append((w, eps, alpha))
-            worst = max(per_node, key=lambda t: t[1])
-            print("(eps = {:.2f}, delta = {}) at alpha = {} [worst node: {}; "
-                  "per-node eps: {}]".format(worst[1], args.target_delta, worst[2], worst[0],
-                                             ", ".join(f"{w}={e:.2f}" for w, e, _ in per_node)))
+    # checkpoints are written in the background; every write has landed
+    # when the block ends, also when it ends in TrialPruned or an error
+    with ckpt.BackgroundWriter() as writer:
+        for epoch in range(start_at_epoch, args.epochs + 1):
+            lr = scheduler.get_lr(epoch - 1)
+            if not args.keep_optim_dict:
+                nodes.reset_optimizers()
+            losses = []  # device tensors until the epoch's end
+            for batch_idx in range(max(num_batches)):
+                batches = [next(feeds[i]) if batch_idx < num_batches[i] else None
+                           for i in range(n_nodes)]
+                losses += [loss for loss in nodes.step(batches, lr) if loss is not None]
+                if batch_idx > 0 and batch_idx % args.sync_every_n_batch == 0:
+                    aggregate()
+            aggregate()
+            epoch_loss = float(torch.stack(losses).double().mean())
+            mon.add_scalar("train_loss", epoch, epoch_loss)
+            mon.add_scalar("lr", epoch, float(lr))
+            if verbose:
+                print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, epoch_loss))
+            if args.differentially_private and verbose:
+                # per-node accounting: each node's mechanism touches only its
+                # own shard; the line leads with the worst node
+                per_node = []
+                for w, imgs, nb in zip(worker_names, node_imgs, num_batches):
+                    eps, alpha = rdp_epsilon(
+                        noise_multiplier=args.noise_multiplier,
+                        sample_rate=min(args.batch_size / max(len(imgs), 1), 1.0),
+                        steps=epoch * nb, delta=args.target_delta)
+                    per_node.append((w, eps, alpha))
+                worst = max(per_node, key=lambda t: t[1])
+                print("(eps = {:.2f}, delta = {}) at alpha = {} [worst node: {}; "
+                      "per-node eps: {}]".format(
+                          worst[1], args.target_delta, worst[2], worst[0],
+                          ", ".join(f"{w}={e:.2f}" for w, e, _ in per_node)))
 
-        if (epoch % args.test_interval) == 0:
-            saved, saved_eval = evaluated()
-            val_loss, matthews = run_eval(saved_eval, val_loader, epoch, class_names, verbose)
-            mon.add_scalar("val_loss", epoch, float(val_loss))
-            mon.add_scalar("val_mcc", epoch, float(matthews))
-            model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
-                exp_name, epoch * reps))
-            ckpt.save_model(model_path, epoch=epoch, model=saved, args=args,
-                            val_mean_std=(mean, std),
-                            opt_state={w: o.state_to_jax()
-                                       for w, o in zip(worker_names, nodes.optimizers)},
-                            raw_params=None if saved is nodes.models[0]
-                            else to_jax_tree(nodes.models[0])[0])
-            matthews_scores.append(matthews)
-            model_paths.append(model_path)
+            if (epoch % args.test_interval) == 0:
+                saved, saved_eval = evaluated()
+                val_loss, matthews = run_eval(saved_eval, val_loader, epoch, class_names,
+                                              verbose)
+                mon.add_scalar("val_loss", epoch, float(val_loss))
+                mon.add_scalar("val_mcc", epoch, float(matthews))
+                model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
+                    exp_name, epoch * reps))
+                report_or_prune(optuna_trial, matthews, epoch * reps)
+                writer.save_model(
+                    model_path, epoch=epoch, model=saved, args=args, val_mean_std=(mean, std),
+                    opt_state={w: o.state_to_jax(on_device=True)
+                               for w, o in zip(worker_names, nodes.optimizers)},
+                    raw_model=None if saved is nodes.models[0] else nodes.models[0])
+                matthews_scores.append(matthews)
+                model_paths.append(model_path)
 
     if not matthews_scores:
         # zero effective epochs (epochs < repetitions_dataset divides to

@@ -22,11 +22,13 @@ from __future__ import annotations
 import csv
 import io
 import json
+from concurrent.futures import Executor, Future, ThreadPoolExecutor
 from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from primia_tpu_torch.config import Arguments
 from primia_tpu_torch.nn.jax_params import to_jax_tree
@@ -118,6 +120,48 @@ def load_tree(path) -> Dict[str, Any]:
     return _decode(spec, [leaves[i] for i in range(len(leaves))])
 
 
+def snapshot(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` on its own device: what a checkpoint
+    keeps of a tensor that training goes on changing in place."""
+    return t.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tensors(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def _cuda_tensors(tree) -> list:
+    found: list = []
+    _map_tensors(lambda t: found.append(t) if t.is_cuda else None, tree)
+    return found
+
+
+def _to_host(tree, ready: Optional["torch.cuda.Event"]):
+    """``tree`` with its tensors as numpy arrays. CUDA tensors are copied
+    into pinned host memory on a side stream that first waits for
+    ``ready`` (recorded after the snapshot), so the caller's stream and
+    the rest of the card run on."""
+    host = {}
+    cuda = _cuda_tensors(tree)
+    if cuda:
+        stream = torch.cuda.Stream(device=cuda[0].device)
+        stream.wait_event(ready)
+        with torch.cuda.stream(stream):
+            for t in cuda:
+                host[id(t)] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True)
+        stream.synchronize()
+    return _map_tensors(lambda t: host.get(id(t), t).numpy(), tree)
+
+
 def save_model(
     path,
     *,
@@ -126,20 +170,30 @@ def save_model(
     args: Arguments,
     val_mean_std: Tuple[np.ndarray, np.ndarray],
     opt_state: Optional[Any] = None,
-    raw_params: Optional[Dict[str, Any]] = None,
-) -> None:
+    raw_model=None,
+    executor: Optional[Executor] = None,
+) -> Optional[Future]:
     """Write a checkpoint of ``model`` (one of the port's modules) that
     both packages load: ``{epoch, args, val_mean_std, model_state_dict:
     {params, state}, optim_state_dict}`` with the weights in the JAX
     layout. ``opt_state`` is the optimizer's ``state_to_jax()``
     (``train/optim.py``): ``AdamState``/``SGDState`` with the moments as
-    one flat vector in the JAX parameter order; federated training saves
+    one flat vector in the JAX parameter order (numpy, or with
+    ``on_device=True`` a copy on the card); federated training saves
     ``{worker: state}``, one per node, as the JAX package does.
-    ``raw_params`` (a JAX params tree) goes under the top-level key
-    ``raw_params``: under DP with a parameter EMA, ``model`` is the average
-    and these are the parameters the optimizer state belongs to. The JAX
-    package's loader decodes the key and uses nothing of it."""
-    params, state = to_jax_tree(model)
+    ``raw_model``'s parameters go under the top-level key ``raw_params``:
+    under DP with a parameter EMA, ``model`` is the average and
+    ``raw_model`` the model the optimizer state belongs to. The JAX
+    package's loader decodes the key and uses nothing of it.
+
+    The caller pays for a copy of the weights on their device
+    (:func:`snapshot`), which decouples the checkpoint from the next
+    steps' in-place updates. With an ``executor`` the copy to the host
+    and the write run there (the JAX package's ``fetch_and_write``) and
+    the ``Future`` is returned: the caller must read its ``.result()``,
+    or a failed write goes unseen. Without one they run before this
+    returns. Both write the same bytes."""
+    params, state = to_jax_tree(model, leaf=snapshot)
     tree = {
         "epoch": int(epoch),
         "args": args.to_json(),
@@ -147,9 +201,45 @@ def save_model(
         "model_state_dict": {"params": params, "state": state},
         "optim_state_dict": opt_state,
     }
-    if raw_params is not None:
-        tree["raw_params"] = raw_params
-    save_tree(path, tree)
+    if raw_model is not None:
+        tree["raw_params"] = to_jax_tree(raw_model, leaf=snapshot)[0]
+    cuda = _cuda_tensors(tree)
+    ready = torch.cuda.current_stream(cuda[0].device).record_event() if cuda else None
+
+    def fetch_and_write():
+        save_tree(path, _to_host(tree, ready))
+
+    if executor is not None:
+        return executor.submit(fetch_and_write)
+    fetch_and_write()
+    return None
+
+
+class BackgroundWriter:
+    """The train loops' checkpoint writer: one thread, so writes land in
+    order, and at most one save in flight, so device snapshots cannot pile
+    up on the card (``primia_tpu/train/loop.py``'s ``submit_save``).
+    Leaving the ``with`` block waits for every write, also when the block
+    raises (``TrialPruned`` or any error); without an error it then
+    raises the first failed write's error."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._futures: list = []
+
+    def save_model(self, path, **kw) -> None:
+        if self._futures:
+            self._futures[-1].result()
+        self._futures.append(save_model(path, executor=self._pool, **kw))
+
+    def __enter__(self) -> "BackgroundWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._pool.shutdown(wait=True)
+        if exc_type is None:
+            for f in self._futures:
+                f.result()
 
 
 def load_model(path) -> Dict[str, Any]:

@@ -10,7 +10,13 @@ Port of the local path of ``primia_tpu/train/loop.py`` (reference
   ``test_interval`` epochs,
 - the best model by Matthews coefficient (last occurrence of the
   maximum) copied to ``<weights_dir>/final_<exp>.pt``, the others
-  deleted, and the run appended to the registry CSV.
+  deleted, and the run appended to the registry CSV;
+- the search's hook (``cli/find_config.py``): each evaluation's objective
+  reported to the trial, ``TrialPruned`` raised when it says to prune;
+- checkpoints written by a background thread (``train/checkpoint.py:
+  BackgroundWriter``): the loop pays for a copy on the card, and every
+  write has landed before the best model is picked, or when the loop
+  ends in an error.
 
 Federated training goes to ``parallel/federated.py:main_federated``, as
 in the JAX package. Under ``differentially_private`` the step is DP-SGD
@@ -37,7 +43,7 @@ from primia_tpu_torch.config import Arguments
 from primia_tpu_torch.data import (BatchLoader, ImageFolderDataset, calc_mean_std,
                                    device_prefetch, random_split, to_device_resident)
 from primia_tpu_torch.nn import create_model
-from primia_tpu_torch.nn.jax_params import from_jax_tree, to_jax_tree
+from primia_tpu_torch.nn.jax_params import from_jax_tree
 from primia_tpu_torch.train import checkpoint as ckpt
 from primia_tpu_torch.train import metrics as M
 from primia_tpu_torch.train.losses import calc_class_weights
@@ -45,6 +51,7 @@ from primia_tpu_torch.train.lr import make_scheduler
 from primia_tpu_torch.train.monitor import Monitor, NullMonitor
 from primia_tpu_torch.train.optim import make_optimizer
 from primia_tpu_torch.train.dp import parameter_ema, rdp_epsilon, select_train_step
+from primia_tpu_torch.train.hpo import TrialPruned
 from primia_tpu_torch.train.steps import build_eval_step
 
 
@@ -105,15 +112,30 @@ def run_eval(eval_step, loader: BatchLoader, epoch: int, class_names, verbose: b
     return float(np.mean(losses)), m["objective"]
 
 
+def report_or_prune(trial, matthews: float, step: int) -> None:
+    """The search's hook after an evaluation (reference ``train.py:508-515``):
+    report the objective at ``step`` and raise ``TrialPruned`` when the
+    trial says to prune. No-op without a trial."""
+    if trial is None:
+        return
+    trial.report(matthews, step)
+    if trial.should_prune():
+        raise TrialPruned()
+
+
 def main(args: Arguments, verbose: bool = True, device="cuda",
-         weights_dir: str = "model_weights") -> float:
+         weights_dir: str = "model_weights", optuna_trial=None) -> float:
     """Trains as the config says; returns the best validation objective
     (100 * MCC). ``device`` is ``"cuda"`` (the default; raises without a
-    card) or ``"cpu"``."""
+    card) or ``"cpu"``. ``optuna_trial`` (a ``train/hpo.py`` trial, or an
+    Optuna one) gets each evaluation's objective at step ``epoch *
+    repetitions_dataset``, and the run raises ``TrialPruned`` when the
+    trial says to prune."""
     if args.train_federated:
         from primia_tpu_torch.parallel.federated import main_federated
 
-        return main_federated(args, verbose=verbose, device=device, weights_dir=weights_dir)
+        return main_federated(args, verbose=verbose, device=device, weights_dir=weights_dir,
+                              optuna_trial=optuna_trial)
     device = resolve_device(device) if isinstance(device, str) else torch.device(device)
 
     timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
@@ -177,35 +199,41 @@ def main(args: Arguments, verbose: bool = True, device="cuda",
 
     matthews_scores, model_paths = [], []
     os.makedirs(weights_dir, exist_ok=True)
-    for epoch in range(start_at_epoch, args.epochs + 1):
-        lr = scheduler.get_lr(epoch - 1)
-        step_losses = []
-        for b in device_prefetch(train_loader, device):
-            step_losses.append(train_step(gen, b.images, b.labels, b.mask, lr))
-            if ema is not None:
-                ema.update()
-        epoch_loss = float(torch.stack(step_losses).mean())
-        mon.add_scalar("train_loss", epoch, epoch_loss)
-        mon.add_scalar("lr", epoch, float(lr))
-        if verbose:
-            print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, epoch_loss))
-        if args.differentially_private and verbose:
-            eps, alpha = rdp_epsilon(
-                noise_multiplier=args.noise_multiplier,
-                sample_rate=min(args.batch_size / max(len(train_imgs), 1), 1.0),
-                steps=epoch * len(train_loader), delta=args.target_delta)
-            print(f"(eps = {eps:.2f}, delta = {args.target_delta}) at alpha = {alpha}")
-        if (epoch % args.test_interval) == 0:
-            val_loss, matthews = run_eval(eval_step, val_loader, epoch, class_names, verbose)
-            mon.add_scalar("val_loss", epoch, float(val_loss))
-            mon.add_scalar("val_mcc", epoch, float(matthews))
-            model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
-                exp_name, epoch * (args.repetitions_dataset or 1)))
-            ckpt.save_model(model_path, epoch=epoch, model=eval_model, args=args,
-                            val_mean_std=(mean, std), opt_state=optimizer.state_to_jax(),
-                            raw_params=None if ema is None else to_jax_tree(model)[0])
-            matthews_scores.append(matthews)
-            model_paths.append(model_path)
+    # checkpoints are written in the background; every write has landed
+    # when the block ends, also when it ends in TrialPruned or an error
+    with ckpt.BackgroundWriter() as writer:
+        for epoch in range(start_at_epoch, args.epochs + 1):
+            lr = scheduler.get_lr(epoch - 1)
+            step_losses = []
+            for b in device_prefetch(train_loader, device):
+                step_losses.append(train_step(gen, b.images, b.labels, b.mask, lr))
+                if ema is not None:
+                    ema.update()
+            epoch_loss = float(torch.stack(step_losses).mean())
+            mon.add_scalar("train_loss", epoch, epoch_loss)
+            mon.add_scalar("lr", epoch, float(lr))
+            if verbose:
+                print("Train Epoch: {} \tLoss: {:.6f}".format(epoch, epoch_loss))
+            if args.differentially_private and verbose:
+                eps, alpha = rdp_epsilon(
+                    noise_multiplier=args.noise_multiplier,
+                    sample_rate=min(args.batch_size / max(len(train_imgs), 1), 1.0),
+                    steps=epoch * len(train_loader), delta=args.target_delta)
+                print(f"(eps = {eps:.2f}, delta = {args.target_delta}) at alpha = {alpha}")
+            if (epoch % args.test_interval) == 0:
+                val_loss, matthews = run_eval(eval_step, val_loader, epoch, class_names, verbose)
+                mon.add_scalar("val_loss", epoch, float(val_loss))
+                mon.add_scalar("val_mcc", epoch, float(matthews))
+                step = epoch * (args.repetitions_dataset or 1)
+                model_path = os.path.join(weights_dir, "{:s}_epoch_{:03d}.pt".format(
+                    exp_name, step))
+                report_or_prune(optuna_trial, matthews, step)
+                writer.save_model(model_path, epoch=epoch, model=eval_model, args=args,
+                                  val_mean_std=(mean, std),
+                                  opt_state=optimizer.state_to_jax(on_device=True),
+                                  raw_model=None if ema is None else model)
+                matthews_scores.append(matthews)
+                model_paths.append(model_path)
 
     if not matthews_scores:
         if verbose:

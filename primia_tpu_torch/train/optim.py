@@ -48,10 +48,12 @@ class _Optimizer:
             grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
         return grads
 
-    def _flat(self, tensors: Sequence[torch.Tensor]) -> np.ndarray:
+    def _flat(self, tensors: Sequence[torch.Tensor], on_device: bool = False):
+        """One flat vector of ``tensors``: a numpy copy on the host, or with
+        ``on_device`` a new tensor on their device."""
         with torch.no_grad():
-            flat = flatten_jax(dict(zip(self.names, tensors)), self.leaves)
-        return flat.float().cpu().numpy()
+            flat = flatten_jax(dict(zip(self.names, tensors)), self.leaves).float()
+        return flat if on_device else flat.cpu().numpy()
 
     @torch.no_grad()
     def reset(self) -> None:
@@ -108,8 +110,11 @@ class Adam(_Optimizer):
     def _moments(self) -> List[torch.Tensor]:
         return self.mu + self.nu
 
-    def state_to_jax(self) -> AdamState:
-        return AdamState(np.int32(self.step), self._flat(self.mu), self._flat(self.nu))
+    def state_to_jax(self, on_device: bool = False) -> AdamState:
+        """The checkpoint's state; with ``on_device`` the moments are a
+        copy on the card, for a background writer to fetch."""
+        return AdamState(np.int32(self.step), self._flat(self.mu, on_device),
+                         self._flat(self.nu, on_device))
 
     def load_jax_state(self, state) -> None:
         self.step = int(np.asarray(state.step))
@@ -139,9 +144,9 @@ class SGD(_Optimizer):
     def _moments(self) -> List[torch.Tensor]:
         return self.buf or []
 
-    def state_to_jax(self) -> SGDState:
+    def state_to_jax(self, on_device: bool = False) -> SGDState:
         return SGDState(np.int32(self.step),
-                        self._flat(self.buf) if self.momentum else None)
+                        self._flat(self.buf, on_device) if self.momentum else None)
 
     def load_jax_state(self, state) -> None:
         self.step = int(np.asarray(state.step))

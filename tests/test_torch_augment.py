@@ -32,6 +32,16 @@ STD = np.array([0.22, 0.23, 0.24])
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u8(shape, seed):
     return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
 

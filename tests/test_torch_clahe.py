@@ -19,6 +19,16 @@ from primia_tpu_torch.ops import cuda_clahe
 from primia_tpu_torch.ops import image as timage
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u8(rng, shape):
     return rng.integers(0, 256, shape, dtype=np.uint8)
 

@@ -26,6 +26,16 @@ from primia_tpu_torch.ops import cuda_dcf
 N_BITS = 31
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u32(rng, shape, high=1 << 32):
     return rng.integers(0, high, shape, dtype=np.uint64).astype(np.uint32)
 

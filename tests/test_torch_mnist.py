@@ -4,9 +4,20 @@ included."""
 
 import numpy as np
 import pytest
+import torch
 
 from primia_tpu.data import mnist as jmnist
 from primia_tpu_torch.data import mnist
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_set(root, compress, seed=0, n_train=40, n_test=12):

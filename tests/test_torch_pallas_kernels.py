@@ -31,6 +31,16 @@ from primia_tpu_torch.ops.image import affine_coords, warp_affine
 
 # ------------------------------------------------------------------ K6
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mats(rng, B):
     """Inverse affine maps with rotation, scale, shear and translations
     that carry part of each output off the image (zero fill)."""

@@ -5,6 +5,7 @@ for the four native functions (with the library and under
 
 import numpy as np
 import pytest
+import torch
 
 from primia_tpu import native as jnative
 from primia_tpu.data import mnist as jmnist
@@ -12,6 +13,16 @@ from primia_tpu.train import pate as jpate
 from primia_tpu_torch import native
 from primia_tpu_torch.data import mnist
 from primia_tpu_torch.train import pate
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _votes(seed, n_teachers=50, n_examples=40, n_labels=10):

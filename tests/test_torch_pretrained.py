@@ -35,6 +35,16 @@ from primia_tpu_torch.nn.torch_import import try_load_pretrained
 RES = 32
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _torchvision_state_dict(num_classes: int, seed: int):
     """Random weights under torchvision's resnet18 keys: conv1, bn1,
     layerK.i.{conv,bn}{1,2}, layerK.0.downsample.{0,1} and fc."""

@@ -22,6 +22,16 @@ from primia_tpu_torch.nn.jax_params import from_jax_tree, to_jax_tree
 RES = 64
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tree(seed: int, in_channels: int = 3):
     params, state = jax.device_get(
         resnet18_init(jax.random.PRNGKey(seed), num_classes=3, in_channels=in_channels))

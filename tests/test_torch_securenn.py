@@ -27,6 +27,16 @@ EDGES_U64 = [0, 1, 2, M - 1, M - 2, 1 << 63, (1 << 63) - 1, (1 << 63) + 1, 12345
              0xDEADBEEFCAFEBABE]
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u64(vals):
     return np.array(vals, dtype=np.uint64)
 

@@ -28,6 +28,16 @@ from primia_tpu_torch.ops import image as port_image
 SHAPES = [(2, 32, 32, 3), (3, 36, 52, 1), (2, 60, 44, 3)]
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imgs(shape, seed, bf16_exact=False):
     rng = np.random.default_rng(seed)
     if bf16_exact:

@@ -51,6 +51,16 @@ LAYERS = (1, 1, 1, 1)
 
 
 @pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
 def _no_materialize_cache(monkeypatch):
     monkeypatch.setenv("PRIMIA_MATERIALIZE_CACHE", "0")
 

@@ -23,6 +23,16 @@ from primia_tpu_torch.nn.core import Conv
 from primia_tpu_torch.ops import cuda_wgrad
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's parallel workers, intra-op threads only wait on
+    each other (tests/test_torch_mpc.py), so each test runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16_pair(rng, shape, scale=1.0):
     """The same bfloat16 values as a JAX (B, H, W, C) array and a torch
     (B, C, H, W) channels_last tensor."""
