@@ -322,6 +322,35 @@ Phases, each reported on its own line; any failure exits nonzero:
                   device time under an aten op, each step's device window
                   and the gaps; the parser's device total within 2% of the
                   profiler's key_averages() total over the same steps.
+25. enc_train     slice 9: encrypted training (mpc/autograd.py) on phase
+                  18's synthetic IDX digits at batch 64, one-hot targets,
+                  mse_loss: the 784-128-64-10 ReLU MLP of PySyft's "Part 12
+                  bis" tutorial, 10 SGD steps under fss and 3 under snn;
+                  a conv net (3x3/s1/p1 1->16 with a bias, ReLU, avg pool
+                  2, linear 3,136->10), 3 steps under fss (its ReLU is one
+                  K4 call at N = 802,816, its weight gradient contracts
+                  over 50,176). After each step the loss and gradients are
+                  revealed and held to the float64 plain step from the same
+                  revealed parameters (ENC_ATOL, ENC_RTOL, ENC_ULPS); the
+                  MLP's fss loss falls; counters read around each step: K4
+                  2 a MLP step and 1 a conv step under fss, 0 under snn.
+                  Step p50, the last step profiled (busy ms, idle share,
+                  device operations), peak memory.
+26. enc_rnn       slice 9: an LSTM (input 28, hidden 128, one layer, batch
+                  first) over 8 digits' 28 rows, one encrypted forward
+                  under fss and one under snn, each within RNN_TOL of the
+                  plain forward on the card; K4's launches equal the sign
+                  batches the same forward counts on the CPU (fss: K4's
+                  plain version); ms and device operations.
+27. crypto        slice 9's library: the DPF at N = 2^20 (31 bits), keys
+                  and both parties' shares equal on the card and the CPU;
+                  msb(gen_compare) equal to K4's sign_shares at N =
+                  802,816; replicated mul, matmul and truncate at 256 x 256
+                  against plaintext (truncation within 1 unit of the exact
+                  shift); a BFV relinearised product at the default
+                  parameters equal on the card and the CPU and decrypting
+                  right; Paillier 1,024-bit keygen, 16 values encrypted and
+                  decrypted on the host. Times of each.
 21. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
@@ -331,7 +360,7 @@ Phases, each reported on its own line; any failure exits nonzero:
                   snn encrypted CLI, K4 on the group model's fss CLI, K1 on
                   the DP and federated DP CLIs, K7 on the switched ghost and
                   microbatched steps; K1, CLAHE, K4, K7 and the BN launches
-                  on phases 17-19's paths; and
+                  on phases 17-19's paths, K4 on phases 25-26's; and
                   a kernel launched no time on any of its paths fails the
                   run), the card's name and power limit, and as the last line
                   {"ok": true, "device": {...}}.
@@ -345,7 +374,7 @@ of phase 14 and the federated step beside it, the DP steps', with
 ``.train_optin.{default,switched}``, ``.federated`` or
 ``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
 Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19, 20,
-22, 23, 24, and 21's line last.
+22, 23, 24, 25, 26, 27, and 21's line last.
 Earlier phases run shallower to make room for 17-19: phases 7 and 14 time 12
 steps (24 before), phase 16's DP steps 3 after 1 warm-up (6 after 2).
 """
@@ -399,7 +428,7 @@ KERNELS = {
                       "source": "primia_tpu_torch/csrc/tent.cu"},
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
                  "also": ("encrypt_group", "vgg_encrypt", "conv_encrypt", "conv_group_encrypt",
-                          "grid_encrypt"),
+                          "grid_encrypt", "enc_train", "enc_rnn"),
                  "kernel": ("dcf_sign_kernel",),
                  "source": "primia_tpu_torch/csrc/dcf.cu"},
     # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
@@ -3838,6 +3867,431 @@ def phase_profile(torch, seed, work, profile_out, ctx, card):
     print("\n".join(r["table"].splitlines()[:16]), flush=True)
 
 
+# ------------------------------------------------------------ slice 9
+
+ENC_BATCH = 64
+ENC_LR = {"mlp": 0.2, "conv": 0.02}  # the conv net's 3,136-wide head takes a smaller step
+MLP_STEPS = {"fss": 10, "snn": 3}
+CONV_STEPS = 3
+# a revealed value against the float64 plain step from the same revealed
+# parameters: |d| <= ENC_ATOL + ENC_RTOL * max |plain| of the tensor +
+# ENC_ULPS * sqrt(D) ulps, D the depth of the contraction that sums the
+# gradient (the loss: 1). A truncation leaves up to an ulp (2^-16) of
+# error in each term, of either sign, so a sum of D terms drifts as
+# sqrt(D): the conv's weight and bias gradients sum 64 x 28 x 28 terms
+# whose plain values are below an ulp each.
+ENC_ATOL, ENC_RTOL, ENC_ULPS = 2e-3, 2e-2, 4
+RNN_BATCH, RNN_HIDDEN = 8, 128
+RNN_TOL = 5e-3  # max |encrypted - plain| of the LSTM's outputs (tests/test_rnn.py's)
+K4_PER_STEP = {"mlp": 2, "conv": 1}  # one sign batch a ReLU; the backward reuses it
+
+
+def mnist_batches(torch, np, work, seed, dev):
+    """Phase 18's synthetic IDX digits (written here if the phase has not
+    run) as ``ENC_BATCH`` batches: (1, 28, 28) images under MNIST's
+    normalisation and one-hot float64 targets, on ``dev``."""
+    from primia_tpu_torch.data.mnist import load_mnist
+
+    root = work / "mnist_idx"
+    if not root.is_dir():
+        write_mnist(np, root, MNIST_TRAIN, MNIST_TEST, seed + 13)
+    imgs, labels, _, _ = load_mnist(str(root))
+    x = (torch.from_numpy(imgs[..., 0].astype(np.float64)) / 255.0 - 0.1307) / 0.3081
+    y = torch.nn.functional.one_hot(torch.from_numpy(labels).long(), 10).double()
+    n = len(x) // ENC_BATCH
+    return [(x[i * ENC_BATCH:(i + 1) * ENC_BATCH, None].to(dev),
+             y[i * ENC_BATCH:(i + 1) * ENC_BATCH].to(dev)) for i in range(n)]
+
+
+def enc_models(torch, dev, seed):
+    """The two models of phase 25 in float64, PyTorch's default init drawn
+    from a seeded generator: (name, params, plain forward, share-space
+    forward, each gradient's contraction depth). Linear weights are (out,
+    in), conv weights OIHW."""
+    from primia_tpu_torch.mpc import autograd as ag
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uniform(fan_in, *shape):
+        b = fan_in ** -0.5
+        return torch.rand(shape, generator=g, device=dev, dtype=torch.float64) * (2 * b) - b
+
+    mlp = {"w1": uniform(784, 128, 784), "b1": uniform(784, 128),
+           "w2": uniform(128, 64, 128), "b2": uniform(128, 64),
+           "w3": uniform(64, 10, 64), "b3": uniform(64, 10)}
+    conv = {"w": uniform(9, 16, 1, 3, 3), "cb": uniform(9, 16),
+            "wf": uniform(3136, 10, 3136), "bf": uniform(3136, 10)}
+    F = torch.nn.functional
+
+    def mlp_plain(p, x, y):
+        h = F.relu(F.linear(x.flatten(1), p["w1"], p["b1"]))
+        h = F.relu(F.linear(h, p["w2"], p["b2"]))
+        return ((F.linear(h, p["w3"], p["b3"]) - y) ** 2).mean()
+
+    def mlp_enc(ctx, p, xs, ys):
+        h = ag.relu(ctx, ag.linear(ctx, ag.flatten(ag.Var(xs)), p["w1"], p["b1"]))
+        h = ag.relu(ctx, ag.linear(ctx, h, p["w2"], p["b2"]))
+        return ag.mse_loss(ctx, ag.linear(ctx, h, p["w3"], p["b3"]), ys)
+
+    def conv_plain(p, x, y):
+        h = F.relu(F.conv2d(x, p["w"], p["cb"], padding=1))
+        h = h.reshape(*h.shape[:2], 14, 2, 14, 2).sum((3, 5)) / 4  # avg pool 2
+        return ((F.linear(h.flatten(1), p["wf"], p["bf"]) - y) ** 2).mean()
+
+    def conv_enc(ctx, p, xs, ys):
+        h = ag.conv2d(ctx, ag.Var(xs), p["w"], stride=1, padding=1)
+        h = ag.avg_pool(ctx, ag.relu(ctx, ag.bias_add(h, p["cb"])), 2)
+        return ag.mse_loss(ctx, ag.linear(ctx, ag.flatten(h), p["wf"], p["bf"]), ys)
+
+    pixels = ENC_BATCH * 28 * 28
+    return (("mlp", mlp, mlp_plain, mlp_enc, dict.fromkeys(mlp, ENC_BATCH)),
+            ("conv", conv, conv_plain, conv_enc,
+             {"w": pixels, "cb": pixels, "wf": ENC_BATCH, "bf": ENC_BATCH}))
+
+
+def enc_train_run(torch, np, dev, batches, model, protocol, steps, seed, on_step=None,
+                  profile_last=False):
+    """``steps`` encrypted SGD steps of ``model`` under ``protocol`` on
+    ``dev``: each batch shared, ``autograd.value_and_grad``, the update in
+    share space. After each step the loss, the gradients and the
+    parameters before it are revealed, and the float64 plain step from
+    those parameters on the same batch gives the loss and gradients they
+    are held to. ``on_step(i)`` runs before each timed step (the launch
+    counters). Returns per-step records: ms (host clock around the
+    synchronised step), loss, plain loss, the worst |d| over |limit|."""
+    from primia_tpu_torch.mpc import autograd as ag
+    from primia_tpu_torch.mpc import fixed
+    from primia_tpu_torch.mpc import shares as S
+    from primia_tpu_torch.mpc.engine import MpcContext, encode_and_share, reveal_and_decode
+
+    name, params, plain, enc, depth = model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ctx = MpcContext(gen, protocol=protocol)
+    ps = encode_and_share(gen, params)
+    vag = ag.value_and_grad(enc)
+    out = []
+    for i in range(steps):
+        x, y = batches[i % len(batches)]
+        xs, ys = S.share(gen, fixed.encode(x)), S.share(gen, fixed.encode(y))
+        if on_step:
+            on_step(i)
+        prof = device_profiler(torch) if profile_last and i == steps - 1 else None
+        with prof or contextlib.nullcontext():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = vag(ctx, ps, xs, ys)
+            new = {k: ag.sgd_update(v, grads[k], ENC_LR[name], ctx.frac_bits)
+                   for k, v in ps.items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        now = {k: reveal_and_decode(v).requires_grad_() for k, v in ps.items()}
+        ref = plain(now, x, y)
+        ref_grads = torch.autograd.grad(ref, list(now.values()))
+        worst, rel = 0.0, {}
+        pairs = [("loss", reveal_and_decode(loss), ref.detach(), 1)] + [
+            (k, reveal_and_decode(grads[k]), rg, depth[k]) for k, rg in zip(now, ref_grads)]
+        for k, got, want, d in pairs:
+            top, err = float(want.abs().max()), float((got - want).abs().max())
+            lim = ENC_ATOL + ENC_RTOL * top + ENC_ULPS * d ** 0.5 / (1 << ctx.frac_bits)
+            worst = max(worst, err / lim)
+            rel[k] = (err / top, top)
+        out.append({"ms": ms, "loss": float(reveal_and_decode(loss)),
+                    "plain_loss": float(ref.detach()), "worst": worst, "rel": rel, "prof": prof})
+        ps = new
+    return out
+
+
+def device_profiler(torch):
+    """A profiler of the card's activity alone: kernels, copies and the
+    runtime calls that launch them, without the CPU side's op records,
+    which cost seconds over a forward of 100,000 launches."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    return tprofile(activities=[ProfilerActivity.CUDA])
+
+
+def _profile_line(prof, ms):
+    """(busy ms, idle share against ``ms``, device operations) of one
+    profiled step; "not measured" where the trace holds no device time."""
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avgs
+               if e.device_type == DeviceType.CUDA) * 1e-3
+    ops = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+    if busy <= 0:
+        return "not measured", "not measured", "not measured"
+    return f"{busy:.4f}", f"{1.0 - busy / ms:.4f}", ops
+
+
+def phase_enc_train(torch, seed, work):
+    """Phase 25, slice 9: encrypted training (``mpc/autograd.py``) on the
+    card. Returns the launches of its fss runs."""
+    import numpy as np
+
+    from primia_tpu_torch.mpc import autograd as ag
+    from primia_tpu_torch.mpc import shares as S
+
+    dev = torch.device("cuda")
+    # the conv step's two gradient convs on random ring values: the card's
+    # limb GEMMs (the weight gradient's depth in chunks) against the CPU's
+    # int64 convs, bit for bit
+    g = torch.Generator(device=dev).manual_seed(seed + 250)
+    shapes = (ENC_BATCH, 1, 28, 28), (16, 1, 3, 3), (ENC_BATCH, 16, 28, 28)
+    x, w, gy = (S.rand_ring(g, s) for s in shapes)
+    f_gx, f_gw = ag.conv_vjp_fns(shapes[0], shapes[1], 1, 1)
+    for what, f, a, b in (("input", f_gx, gy, w), ("weight", f_gw, x, gy)):
+        check(torch.equal(f(a, b).cpu(), f(a.cpu(), b.cpu())),
+              f"enc_train: the card's {what} gradient conv differs from the CPU's")
+    say("enc_train", gradient_convs="card equals CPU bit for bit",
+        weight_gradient_depth=ENC_BATCH * 28 * 28)
+    batches = mnist_batches(torch, np, work, seed, dev)
+    mlp, conv = enc_models(torch, dev, seed + 25)
+    total = idle_launches()
+    for model, protocol, steps in ((mlp, "fss", MLP_STEPS["fss"]),
+                                   (mlp, "snn", MLP_STEPS["snn"]), (conv, "fss", CONV_STEPS)):
+        name = model[0]
+        per_step = []
+
+        def on_step(i):
+            if i:
+                per_step.append(read_launches())
+            reset_launches()
+
+        torch.cuda.reset_peak_memory_stats()
+        recs = enc_train_run(torch, np, dev, batches, model, protocol, steps, seed,
+                             on_step=on_step, profile_last=True)
+        per_step.append(read_launches())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = K4_PER_STEP[name] if protocol == "fss" else 0
+        for i, (n, r) in enumerate(zip(per_step, recs)):
+            check(n == idle_launches(dcf_sign=want),
+                  f"enc_train: {name} {protocol} step {i} launched {n}, want K4 {want}")
+            check(r["worst"] <= 1.0,
+                  f"enc_train: {name} {protocol} step {i} off the plain step: "
+                  f"{r['worst']:.3f} of the limit")
+            if protocol == "fss":
+                total = {k: total[k] + n[k] for k in total}
+        if name == "mlp" and protocol == "fss":
+            check(recs[-1]["loss"] < recs[0]["loss"],
+                  f"enc_train: the MLP's loss did not fall: {[r['loss'] for r in recs]}")
+        # the first step pays first use (library loads, allocator), the
+        # last runs under the profiler: the p50 is of the steps between
+        p50 = float(np.percentile([r["ms"] for r in recs[1:-1]], 50))
+        busy, idle, ops = _profile_line(recs[-1]["prof"], recs[-1]["ms"])
+        say("enc_train", model=name, protocol=protocol, batch=ENC_BATCH, steps=steps,
+            lr=ENC_LR[name], step_ms_p50=f"{p50:.4f}", profiled_step_ms=f"{recs[-1]['ms']:.4f}",
+            device_busy_ms_per_step=busy, idle_share=idle,
+            device_ops_per_step=ops, peak_memory_gb=f"{peak_gb:.3f}",
+            k4_per_step=want, worst_of_limit=f"{max(r['worst'] for r in recs):.4f}",
+            limit=f"{ENC_ATOL}+{ENC_RTOL}*max|plain|+{ENC_ULPS}*sqrt(depth)*2^-16")
+        say("enc_train", model=name, protocol=protocol,
+            max_rel_err=json.dumps({k: round(max(r["rel"][k][0] for r in recs), 6)
+                                    for k in recs[0]["rel"]}),
+            min_max_abs_plain=json.dumps({k: round(min(r["rel"][k][1] for r in recs), 6)
+                                          for k in recs[0]["rel"]}),
+            losses=json.dumps([round(r["loss"], 6) for r in recs]),
+            plain_losses=json.dumps([round(r["plain_loss"], 6) for r in recs]),
+            step_ms=json.dumps([round(r["ms"], 4) for r in recs]))
+    return total
+
+
+def counting_context(gen, protocol):
+    """An ``MpcContext`` that counts its sign batches (``ctx.signs``): K4's
+    launches on the card, its plain version's calls on the CPU."""
+    from primia_tpu_torch.mpc.engine import MpcContext
+
+    class Counting(MpcContext):
+        signs = 0
+
+        def sign_shares(self, x):
+            self.signs += 1
+            return super().sign_shares(x)
+
+    return Counting(gen, protocol=protocol)
+
+
+def rnn_forward(torch, np, dev, params, x, protocol, seed):
+    """One encrypted LSTM forward (``nn/rnn.py`` over ``MpcEngine``) of
+    ``x`` (B, T, F) batch first: (revealed output, sign batches, ms)."""
+    from primia_tpu_torch.mpc import fixed
+    from primia_tpu_torch.mpc import shares as S
+    from primia_tpu_torch.mpc.engine import MpcEngine, encode_and_share, reveal_and_decode
+    from primia_tpu_torch.nn import rnn as R
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ctx = counting_context(gen, protocol)
+    ps = {d: [encode_and_share(gen, c) for c in cells] for d, cells in params.items()}
+    xs = S.share(gen, fixed.encode(x))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = R.rnn_apply(MpcEngine(ctx), ps, xs, kind="lstm", batch_first=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return reveal_and_decode(out), ctx.signs, (time.perf_counter() - t0) * 1e3
+
+
+def phase_enc_rnn(torch, seed, work):
+    """Phase 26, slice 9: an encrypted LSTM forward on the card. Returns
+    the launches of its fss forward."""
+    import numpy as np
+
+    from primia_tpu_torch.nn import rnn as R
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    params = R.rnn_init(torch.Generator(device=dev).manual_seed(seed + 26), 28, RNN_HIDDEN,
+                        kind="lstm", dtype=torch.float64)
+    x = mnist_batches(torch, np, work, seed, dev)[0][0][:RNN_BATCH, 0]  # rows as steps
+    want, _ = R.rnn_apply(R.PLAIN, params, x, kind="lstm", batch_first=True)
+    cpu_params = {d: [{k: v.cpu() for k, v in c.items()} for c in cells]
+                  for d, cells in params.items()}
+    # the same fss forward on the CPU, K4's plain version, counts the sign
+    # batches the card's K4 must launch
+    _, cpu_signs, cpu_ms = rnn_forward(torch, np, cpu, cpu_params, x.cpu(), "fss", seed)
+    launches = None
+    for protocol in ("fss", "snn"):
+        reset_launches()
+        got, signs, ms = rnn_forward(torch, np, dev, params, x, protocol, seed)
+        n = read_launches()
+        want_k4 = cpu_signs if protocol == "fss" else 0
+        check(signs == cpu_signs and n == idle_launches(dcf_sign=want_k4),
+              f"enc_rnn: {protocol} launched {n} ({signs} sign batches), the CPU's fss run "
+              f"{cpu_signs} sign batches")
+        err = float((got - want).abs().max())
+        check(err <= RNN_TOL, f"enc_rnn: {protocol} output off plain by {err}")
+        with device_profiler(torch) as prof:
+            rnn_forward(torch, np, dev, params, x, protocol, seed)
+        busy, _, ops = _profile_line(prof, ms)
+        say("enc_rnn", protocol=protocol, batch=RNN_BATCH, steps=28, hidden=RNN_HIDDEN,
+            forward_ms=f"{ms:.4f}", device_busy_ms_with_sharing=busy, device_ops=ops,
+            k4_launches=n["dcf_sign"], cpu_sign_batches=cpu_signs,
+            cpu_fss_forward_ms=f"{cpu_ms:.1f}", max_abs_err=f"{err:.6f}", limit=RNN_TOL)
+        if protocol == "fss":
+            launches = n
+    return launches
+
+
+DPF_N, DPF_BITS = 1 << 20, 31
+CMP_N = 802_816  # the conv step's ReLU: 64 x 16 x 28 x 28
+REP_SHAPE = (256, 256)
+PAILLIER_BITS, PAILLIER_VALUES = 1024, 16
+
+
+def _timed(torch, dev, fn):
+    """(fn(), ms on the host clock, synchronised on the card)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_crypto(torch, seed):
+    """Phase 27, slice 9: the share-space crypto library on the card."""
+    import numpy as np
+
+    from primia_tpu_torch.mpc import bfv, compare, dcf, fixed, paillier, replicated, ring_ops
+    from primia_tpu_torch.mpc import shares as S
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+
+    # the DPF: keys and both parties' shares, card against CPU
+    alpha = torch.randint(0, 1 << DPF_BITS, (DPF_N,), generator=g, device=dev)
+    beta = S.rand_ring(g, (DPF_N,))
+    seeds = torch.randint(0, 1 << 32, (2, DPF_N, 4), generator=g, device=dev)
+    x = torch.randint(0, 1 << DPF_BITS, (DPF_N,), generator=g, device=dev)
+    x[::2] = alpha[::2]  # half the points on alpha
+
+    def dpf(seeds, alpha, beta, x):
+        keys = dcf.dpf_gen_from_seeds(seeds, alpha, beta, DPF_BITS)
+        return keys, [dcf.dpf_eval(p, keys, x, DPF_BITS) for p in (0, 1)]
+
+    (keys, ev), dpf_ms = _timed(torch, dev, lambda: dpf(seeds, alpha, beta, x))
+    (ckeys, cev), dpf_cpu_ms = _timed(torch, cpu, lambda: dpf(
+        *(t.cpu() for t in (seeds, alpha, beta, x))))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip((*keys, *ev), (*ckeys, *cev))),
+          "crypto: the card's DPF keys or shares differ from the CPU's")
+    check(torch.equal(ev[0] + ev[1], torch.where(x == alpha, beta, torch.zeros_like(beta))),
+          "crypto: the DPF does not open to beta at alpha and 0 elsewhere")
+    say("crypto", dpf_n=DPF_N, n_bits=DPF_BITS, card_ms=f"{dpf_ms:.4f}",
+        cpu_ms=f"{dpf_cpu_ms:.4f}", bit_for_bit=True)
+    del keys, ev, ckeys, cev
+
+    # the comparison split into dealer and online phases, against K4's
+    v = torch.randint(-(1 << 30), 1 << 30, (CMP_N,), generator=g, device=dev)
+    xs = S.share(g, v)
+    fused, fused_ms = _timed(torch, dev, lambda: compare.sign_shares(
+        torch.Generator(device=dev).manual_seed(seed), xs))
+    split, split_ms = _timed(torch, dev, lambda: compare.msb(xs, compare.gen_compare(
+        torch.Generator(device=dev).manual_seed(seed), CMP_N)))
+    check(torch.equal(fused.data, split.data), "crypto: msb(gen_compare) differs from K4's")
+    check(torch.equal(S.reconstruct(split), (v < 0).long()), "crypto: msb opens wrong")
+    say("crypto", compare_n=CMP_N, sign_shares_k4_ms=f"{fused_ms:.4f}",
+        gen_compare_msb_ms=f"{split_ms:.4f}", bit_for_bit=True)
+    del fused, split
+
+    # replicated 3-party sharing: products and truncation against plaintext
+    a = torch.rand(REP_SHAPE, generator=g, device=dev, dtype=torch.float64) * 8 - 4
+    b = torch.rand(REP_SHAPE, generator=g, device=dev, dtype=torch.float64) * 8 - 4
+    ea, eb = fixed.encode(a), fixed.encode(b)
+    ra, rb = replicated.share(g, ea), replicated.share(g, eb)
+    R = replicated.reconstruct
+    z, mul_ms = _timed(torch, dev, lambda: replicated.mul(g, ra, rb))
+    m, mm_ms = _timed(torch, dev, lambda: replicated.matmul(g, ra, rb))
+    tz, tr_ms = _timed(torch, dev, lambda: replicated.truncate(g, z))
+    tm = replicated.truncate(g, m)
+    exact_mm = ring_ops.ring_matmul(ea.cpu(), eb.cpu())
+    check(torch.equal(R(z), ea * eb), "crypto: replicated mul differs from the ring product")
+    check(torch.equal(R(m).cpu(), exact_mm), "crypto: replicated matmul differs")
+    for got, exact in ((R(tz).cpu(), (ea * eb).cpu()), (R(tm).cpu(), exact_mm)):
+        off = int((got - (exact >> fixed.DEFAULT_FRAC_BITS)).abs().max())
+        check(off <= 1, f"crypto: replicated truncate off by {off} units")
+    say("crypto", replicated_shape=json.dumps(REP_SHAPE), mul_ms=f"{mul_ms:.4f}",
+        matmul_ms=f"{mm_ms:.4f}", truncate_ms=f"{tr_ms:.4f}", truncate_within_ulps=1)
+
+    # BFV: one relinearised ciphertext product, card against CPU
+    rng = np.random.default_rng(seed)
+    u, w = (rng.integers(-100, 101, 2048) for _ in range(2))
+    res = []
+    for d in (dev, cpu):
+        (ctx, sk, pk, rk), setup_ms = _timed(torch, d, lambda: (
+            lambda c: (c, *bfv.KeyGenerator(c, seed=seed).keygen()))(
+            bfv.Context(device=d.type)))
+        enc, ev = bfv.BatchEncoder(ctx), bfv.Evaluator(ctx)
+        e = bfv.Encryptor(ctx, pk, seed=seed + 1)
+        ca, cb = e.encrypt(enc.encode(u)), e.encrypt(enc.encode(w))
+        prod, mul_ms = _timed(torch, d, lambda: ev.mul(ca, cb, rk))
+        out = enc.decode(bfv.Decryptor(ctx, sk).decrypt(prod)).cpu().numpy()
+        res.append((prod, mul_ms, setup_ms, out))
+    (card, card_ms, setup_ms, out), (host, host_ms, _, _) = res
+    check(all(torch.equal(p.cpu(), q) for p, q in zip(card.parts, host.parts)),
+          "crypto: the card's BFV product differs from the CPU's")
+    check(np.array_equal(out, u * w), "crypto: BFV decrypts the product wrongly")
+    say("crypto", bfv_n=2048, bfv_mul_relin_card_ms=f"{card_ms:.4f}",
+        bfv_mul_relin_cpu_ms=f"{host_ms:.4f}", bfv_context_keygen_card_ms=f"{setup_ms:.4f}",
+        bit_for_bit=True)
+
+    # Paillier on the host
+    t0 = time.perf_counter()
+    sk = paillier.keygen(PAILLIER_BITS)
+    t1 = time.perf_counter()
+    vals = rng.uniform(-100, 100, PAILLIER_VALUES)
+    ct = paillier.encrypt(sk.public, vals)
+    t2 = time.perf_counter()
+    back = paillier.decrypt(sk, ct).numpy()
+    t3 = time.perf_counter()
+    check(np.allclose(back, vals, atol=1e-4), "crypto: Paillier round trip")
+    say("crypto", paillier_bits=PAILLIER_BITS, values=PAILLIER_VALUES,
+        keygen_s=f"{t1 - t0:.4f}", encrypt_ms=f"{(t2 - t1) * 1e3:.4f}",
+        decrypt_ms=f"{(t3 - t2) * 1e3:.4f}", on="host")
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
@@ -3931,6 +4385,12 @@ def main(argv=None) -> int:
         lap("warm")
         phase_profile(torch, opts.seed, work, profile_out, ctx, card)
         lap("profile")
+        by_path["enc_train"] = phase_enc_train(torch, opts.seed, work)
+        lap("enc_train")
+        by_path["enc_rnn"] = phase_enc_rnn(torch, opts.seed, work)
+        lap("enc_rnn")
+        phase_crypto(torch, opts.seed)
+        lap("crypto")
         say("seconds", **seconds, total=round(sum(seconds.values()), 1))
         for name, meta in KERNELS.items():
             for path in (meta["path"], *meta.get("also", ())):

@@ -7,7 +7,9 @@ parties open ``delta = x - a`` and ``eps = y - b`` and combine
     z = c + f(delta, b) + f(a, eps),   party 0 adds f(delta, eps).
 
 The JAX package maps ``f`` over the party axis with ``jax.vmap``. Here
-the party axis is written out: for a matmul or a conv, ``delta`` against
+the party axis is written out. :func:`bilinear` is the general combine,
+five calls of ``f`` for any bilinear ``f`` (the share-space gradients'
+convolutions). For a matmul or a conv, ``delta`` against
 both parties' ``b`` and against ``eps`` is one product with the three
 right operands stacked on the output axis, and both parties' ``a``
 against ``eps`` one product with the party axis folded into the rows (or
@@ -41,6 +43,19 @@ def gen_triple(gen: torch.Generator, f: Callable, a_shape, b_shape) -> Triple:
 
 def _open(x: AShare, y: AShare, t: Triple):
     return S.reconstruct(S.sub(x, t.a)), S.reconstruct(S.sub(y, t.b))
+
+
+def bilinear(f: Callable, x: AShare, y: AShare, triple: Triple) -> AShare:
+    """z = f(x, y) on sharings through ``triple`` (the online phase), for
+    any bilinear ``f`` of two int64 ring tensors: ``delta`` and ``eps``
+    are opened; each party's cross terms are ``f`` on its own shares;
+    ``f(delta, eps)`` enters party 0's share only."""
+    delta, eps = _open(x, y, triple)
+    a, b = triple.a.data, triple.b.data
+    z = triple.c.data + torch.stack([f(delta, b[0]) + f(a[0], eps),
+                                     f(delta, b[1]) + f(a[1], eps)])
+    z[0] += f(delta, eps)
+    return AShare(z)
 
 
 def mul(gen: torch.Generator, x: AShare, y: AShare) -> AShare:

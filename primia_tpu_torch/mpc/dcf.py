@@ -1,10 +1,12 @@
 """Distributed comparison function (DCF): key generation and evaluation.
 
-Port of ``dcf_gen_from_seeds`` and ``dcf_eval`` of
-``primia_tpu/mpc/dcf.py`` (Boyle-Gilboa-Ishai's DCF with the Threefry
-PRG of ``mpc/prg.py``), bit for bit given the same root seeds. Together
-they are the plain version of the FSS sign kernel K4
-(``ops/cuda_dcf.py:dcf_sign_plain``). The DPF is not ported yet.
+Port of ``primia_tpu/mpc/dcf.py`` (Boyle-Gilboa-Ishai's DCF and DPF
+with the Threefry PRG of ``mpc/prg.py``), bit for bit given the same root
+seeds. ``dcf_gen_from_seeds`` and ``dcf_eval`` together are the plain
+version of the FSS sign kernel K4 (``ops/cuda_dcf.py:dcf_sign_plain``)
+and the comparison's online walk (``compare.msb``); the DPF
+(``dpf_gen``, ``dpf_eval``) is plain torch on any device, as the JAX
+package runs it in XLA.
 
 Domain: n-bit unsigned points (words in int64 tensors, as in
 ``mpc/prg.py``); payload group Z_{2^64} (int64, wrapping). Each level
@@ -18,6 +20,7 @@ Key layout (batch N, domain n):
     t_cw:     (n, N, 2)  control-bit corrections (L, R)
     v_cw:     (n, N)     value corrections
     last_cw:  (N,)       final output correction
+A DPF key has no v_cw.
 """
 
 from __future__ import annotations
@@ -29,6 +32,13 @@ import torch
 from primia_tpu_torch.mpc.prg import expand, expand_child, words_to_ring
 
 N_BITS_DEFAULT = 32
+
+
+class DpfKeys(NamedTuple):
+    seeds: torch.Tensor
+    s_cw: torch.Tensor
+    t_cw: torch.Tensor
+    last_cw: torch.Tensor
 
 
 class DcfKeys(NamedTuple):
@@ -111,3 +121,57 @@ def dcf_eval(party: Union[int, torch.Tensor], keys: DcfKeys, x: torch.Tensor,
         s = s_x ^ (keys.s_cw[i] * t.unsqueeze(-1))
         t = t_x ^ (t * t_cw)
     return v + sign_b * (words_to_ring(s[..., :2]) + t * keys.last_cw)
+
+
+# ---------------------------------------------------------------- DPF
+
+def dpf_gen_from_seeds(seeds: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                       n_bits: int = N_BITS_DEFAULT) -> DpfKeys:
+    """Keys for f(x) = beta * 1{x == alpha} from explicit (2, N, 4) root
+    seeds; alpha (N,) words, beta (N,) int64."""
+    N = alpha.shape[0]
+    dev = alpha.device
+    s = seeds
+    t = torch.stack([torch.zeros(N, dtype=torch.int64, device=dev),
+                     torch.ones(N, dtype=torch.int64, device=dev)])
+    s_cws, t_cws = [], []
+    for i in range(n_bits):
+        a = _bit(alpha, i, n_bits)
+        sL, tL, _, sR, tR, _ = expand(s)
+        s_lose = _sel(a, sR, sL)
+        s_cw = s_lose[0] ^ s_lose[1]
+        t_cw_L = tL[0] ^ tL[1] ^ a ^ 1
+        t_cw_R = tR[0] ^ tR[1] ^ a
+        t_cw_keep = torch.where(a == 1, t_cw_R, t_cw_L)
+        s = _sel(a, sL, sR) ^ (s_cw * t.unsqueeze(-1))
+        t = torch.where(a == 1, tR, tL) ^ (t * t_cw_keep)
+        s_cws.append(s_cw)
+        t_cws.append(torch.stack([t_cw_L, t_cw_R], dim=-1))
+    conv = words_to_ring(s[..., :2])
+    last_cw = (1 - 2 * t[1]) * (beta + conv[1] - conv[0])
+    return DpfKeys(seeds=seeds, s_cw=torch.stack(s_cws), t_cw=torch.stack(t_cws),
+                   last_cw=last_cw)
+
+
+def dpf_gen(gen: torch.Generator, alpha: torch.Tensor, beta: torch.Tensor,
+            n_bits: int = N_BITS_DEFAULT) -> DpfKeys:
+    """DPF keys with root seeds drawn from ``gen``: (2, N, 4) 32-bit words."""
+    seeds = torch.randint(0, 1 << 32, (2, alpha.shape[0], 4), dtype=torch.int64,
+                          generator=gen, device=gen.device)
+    return dpf_gen_from_seeds(seeds, alpha, beta, n_bits)
+
+
+def dpf_eval(party: int, keys: DpfKeys, x: torch.Tensor,
+             n_bits: int = N_BITS_DEFAULT) -> torch.Tensor:
+    """Party b's additive share of beta * 1{x == alpha}; x (N,) words.
+    Each level expands only the child on x's path (``expand_child``), the
+    same words as the JAX package's full expansion and select."""
+    s = keys.seeds[party]
+    t = torch.full(x.shape, party, dtype=torch.int64, device=x.device)
+    for i in range(n_bits):
+        xb = _bit(x, i, n_bits)
+        s_x, t_x, _ = expand_child(s, xb)
+        t_cw = torch.where(xb == 1, keys.t_cw[i][..., 1], keys.t_cw[i][..., 0])
+        s = s_x ^ (keys.s_cw[i] * t.unsqueeze(-1))
+        t = t_x ^ (t * t_cw)
+    return (1 - 2 * party) * (words_to_ring(s[..., :2]) + t * keys.last_cw)

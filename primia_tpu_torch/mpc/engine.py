@@ -20,8 +20,14 @@ W)`` and OIHW conv weights:
   (``functions.div_public_int``, a deviation from the JAX package's
   16-bit ``encode(1 / n)``).
 
+- the RNN library's ops (``nn/rnn.py``): ``sigmoid`` and ``tanh`` by the
+  Chebyshev series of ``mpc/functions.py`` (each one comparison batch),
+  an elementwise ``mul``, and the structural ``split_last``,
+  ``concat_last``, ``zeros``, ``time_slice``, ``stack_time`` and
+  ``swap_time_batch`` on ``(2, T, B, F)`` sequences.
+
 Dealer randomness comes from the context's ``torch.Generator``, drawn in
-the order the ops run. Not ported yet (ROADMAP, queue 1): the RNN ops.
+the order the ops run.
 """
 
 from __future__ import annotations
@@ -206,6 +212,37 @@ class MpcEngine:
 
     def flatten(self, x: AShare) -> AShare:
         return S.reshape(x, (x.shape[0], -1))
+
+    # ---- elementwise and structural ops of the RNN library (nn/rnn.py)
+
+    def sigmoid(self, x: AShare) -> AShare:
+        return Fn.sigmoid(self.ctx, x)
+
+    def tanh(self, x: AShare) -> AShare:
+        return Fn.tanh(self.ctx, x)
+
+    def mul(self, x: AShare, y: AShare) -> AShare:
+        return self._mul(x, y)
+
+    def split_last(self, x: AShare, k: int):
+        if x.shape[-1] % k:
+            raise ValueError(f"split_last: last dim {x.shape[-1]} not divisible by {k}")
+        return tuple(AShare(d) for d in x.data.chunk(k, dim=-1))
+
+    def concat_last(self, xs):
+        return AShare(torch.cat([x.data for x in xs], dim=-1))
+
+    def zeros(self, shape, like: AShare) -> AShare:
+        return AShare(like.data.new_zeros((2, *shape)))
+
+    def time_slice(self, x: AShare, t: int) -> AShare:
+        return AShare(x.data[:, t])
+
+    def stack_time(self, xs):
+        return S.stack(xs, axis=0)
+
+    def swap_time_batch(self, x: AShare) -> AShare:
+        return AShare(x.data.transpose(1, 2))
 
 
 # ----------------------------------------------------------- sharing utils

@@ -18,6 +18,11 @@ A numbered level of module names is a JAX list when its keys are
 ``0 .. n-1`` (a layer's blocks, VGG's ``features``, the classifiers) and
 a dict with string keys otherwise (SimpleConv's ``bns``: ``"0"``, ``"1"``,
 ``"3"``), as in the JAX trees.
+
+The RNN library's parameters (``nn/rnn.py``) are a tree of their own,
+``{"fwd": [cell, ...], "bwd": [...]}``: :func:`rnn_from_jax` carries it
+across, the cells' ``wxh``/``whh`` transposed from (in, out) to (out,
+in), the biases as they are.
 """
 
 from __future__ import annotations
@@ -66,6 +71,17 @@ def from_jax_tree(params: Dict[str, Any], state: Dict[str, Any]) -> Dict[str, to
     _walk(params, "", {"w": "weight", **_PARAM_LEAF}, out)
     _walk(state, "", _STATE_LEAF, out)
     return out
+
+
+def rnn_from_jax(params: Dict[str, Any], dtype=torch.float32,
+                 device="cpu") -> Dict[str, List[Dict[str, torch.Tensor]]]:
+    """The JAX package's ``rnn_init`` tree -> ``nn/rnn.py``'s, on ``device``."""
+    def cell(p):
+        return {k: torch.from_numpy(np.array(np.asarray(v).T if k in ("wxh", "whh")
+                                             else np.asarray(v), order="C")).to(device, dtype)
+                for k, v in p.items()}
+
+    return {d: [cell(p) for p in cells] for d, cells in params.items()}
 
 
 def _nest(flat: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, Any]:
