@@ -351,6 +351,35 @@ Phases, each reported on its own line; any failure exits nonzero:
                   parameters equal on the card and the CPU and decrypting
                   right; Paillier 1,024-bit keygen, 16 values encrypted and
                   decrypted on the host. Times of each.
+28. data_parallel slice 10: the canonical INI's train step (ResNet-18 @ 224,
+                  global batch 200, CLAHE, MixUp, the noise) data parallel
+                  over ranks of torch.distributed (parallel/launch.py
+                  spawns them, a deadline each): 2 ranks on cuda:0 over
+                  gloo on a one-card machine, a rank a card over NCCL
+                  otherwise. The 2-rank float32 step against the
+                  one-process step on the card (loss 1e-5 relative, fc
+                  gradients 1e-4 of their largest, BN statistics 1e-5);
+                  K1 4 and CLAHE 1 a step on every rank; the bf16 step's
+                  p50 of 12, idle share, the gradient all-reduce's ms and
+                  bytes, the noise field drawn whole against a rank's rows;
+                  3 steps under PRIMIA_PALLAS_BN=1 PRIMIA_PALLAS_WGRAD=1
+                  (K7 6, each BN launch 20 a step on every rank) held to
+                  the unswitched steps (losses within 2e-2).
+29. multihost     one secure FedAvg round across the ranks (a node a rank)
+                  of ResNet-18 trees: bit for bit the one-process
+                  secure_fedavg on the card.
+30. party         party_devices: the encrypted ResNet-18 @ 224 at batch 4
+                  under fss and snn on ("cuda:0", "cuda:0"), SimpleConv @
+                  28 with party 1 on the CPU (and on cuda:1 with a second
+                  card), a secure FedAvg with party 1 on the CPU: each bit
+                  for bit the unsplit result; K4 21 and CLAHE 1 a split fss
+                  forward; split and unsplit p50.
+31. tf_export     whether TensorFlow imports; when it does, phase 7's
+                  checkpoint exported as a SavedModel, its logits within
+                  1e-4 of the card's eval logits.
+32. figures       cli/figure_lambda.py and cli/figure_sigma.py over two
+                  values for one epoch each, their CSVs under
+                  build/chip_smoke/figures.
 21. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
                   for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
@@ -374,7 +403,7 @@ of phase 14 and the federated step beside it, the DP steps', with
 ``.train_optin.{default,switched}``, ``.federated`` or
 ``.dp_{microbatched,ghost,ghost_optin}`` before the suffix).
 Phases run in the order 1-5, 8-12, 6, 13, 13b, 13c, 7, 14, 15, 16, 17, 18, 19, 20,
-22, 23, 24, 25, 26, 27, and 21's line last.
+22, 23, 24, 25, 26, 27, 28-29, 30, 31, 32, and 21's line last.
 Earlier phases run shallower to make room for 17-19: phases 7 and 14 time 12
 steps (24 before), phase 16's DP steps 3 after 1 warm-up (6 after 2).
 """
@@ -413,12 +442,14 @@ KERNELS = {
     "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
               "also": ("federated", "encrypt_snn", "vgg_serve", "vgg_train", "vgg_encrypt",
                        "vgg_encrypt_snn", "conv_serve", "conv_train", "conv_encrypt",
-                       "conv_encrypt_snn", "grid_serve", "grid_federated", "hpo"),
+                       "conv_encrypt_snn", "grid_serve", "grid_federated", "hpo",
+                       "data_parallel", "data_parallel_switched", "party"),
               "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
                   "also": ("federated", "dp", "dp_federated", "vgg_train", "conv_train",
-                           "mnist", "conv_dp", "conv_dp_federated", "grid_federated", "hpo"),
+                           "mnist", "conv_dp", "conv_dp_federated", "grid_federated", "hpo",
+                           "data_parallel", "data_parallel_switched"),
                   "kernel": ("tent_rows_kernel",),
                   "source": "primia_tpu_torch/csrc/tent.cu"},
     # K2 is on the train path when the dense warp is the joint gather
@@ -428,36 +459,37 @@ KERNELS = {
                       "source": "primia_tpu_torch/csrc/tent.cu"},
     "dcf_sign": {"replaces": "primia_tpu/ops/pallas_dcf.py:115", "path": "encrypt",
                  "also": ("encrypt_group", "vgg_encrypt", "conv_encrypt", "conv_group_encrypt",
-                          "grid_encrypt", "enc_train", "enc_rnn"),
+                          "grid_encrypt", "enc_train", "enc_rnn", "party"),
                  "kernel": ("dcf_sign_kernel",),
                  "source": "primia_tpu_torch/csrc/dcf.cu"},
     # slice 2b: the train step under PRIMIA_PALLAS_WGRAD/BN/AUGMENT=1; a
     # function's time counts each kernel named here (K7's second, reducing
     # pass included)
     "conv3x3_wgrad": {"replaces": "primia_tpu/ops/pallas_wgrad.py:122", "path": "train_optin",
-                      "also": ("dp_ghost_optin", "dp_micro_optin", "vgg_optin"),
+                      "also": ("dp_ghost_optin", "dp_micro_optin", "vgg_optin",
+                               "data_parallel_switched"),
                       "kernel": ("conv3x3_wgrad_kernel", "conv3x3_wgrad_reduce_kernel"),
                       "source": "primia_tpu_torch/csrc/wgrad.cu"},
     # the switched batch norm, three launches a direction: K8's sums, and the
     # finalize and elementwise passes that bn_train's custom_vjp leaves to
     # XLA on the TPU (their "replaces" names those lines)
     "bn_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:59", "path": "train_optin",
-                "also": ("conv_optin",), "kernel": ("bn_sums_kernel",),
+                "also": ("conv_optin", "data_parallel_switched"), "kernel": ("bn_sums_kernel",),
                 "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_finalize": {"replaces": "primia_tpu/ops/pallas_bn.py:254", "path": "train_optin",
-                    "also": ("conv_optin",), "kernel": ("bn_finalize_kernel",),
+                    "also": ("conv_optin", "data_parallel_switched"), "kernel": ("bn_finalize_kernel",),
                     "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_apply": {"replaces": "primia_tpu/ops/pallas_bn.py:261", "path": "train_optin",
-                 "also": ("conv_optin",), "kernel": ("bn_apply_kernel",),
+                 "also": ("conv_optin", "data_parallel_switched"), "kernel": ("bn_apply_kernel",),
                  "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_grad_sums": {"replaces": "primia_tpu/ops/pallas_bn.py:75", "path": "train_optin",
-                     "also": ("conv_optin",), "kernel": ("bn_grad_sums_kernel",),
+                     "also": ("conv_optin", "data_parallel_switched"), "kernel": ("bn_grad_sums_kernel",),
                      "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_grad_finalize": {"replaces": "primia_tpu/ops/pallas_bn.py:276", "path": "train_optin",
-                         "also": ("conv_optin",), "kernel": ("bn_grad_finalize_kernel",),
+                         "also": ("conv_optin", "data_parallel_switched"), "kernel": ("bn_grad_finalize_kernel",),
                          "source": "primia_tpu_torch/csrc/bn.cu"},
     "bn_dx": {"replaces": "primia_tpu/ops/pallas_bn.py:285", "path": "train_optin",
-              "also": ("conv_optin",), "kernel": ("bn_dx_kernel",),
+              "also": ("conv_optin", "data_parallel_switched"), "kernel": ("bn_dx_kernel",),
               "source": "primia_tpu_torch/csrc/bn.cu"},
     # K5 is on no path of either package (only the JAX package's own test
     # calls it), so its path is its own phase: one call at the canonical
@@ -594,22 +626,16 @@ def bound(nbytes, nops, peak_ops=PEAK_F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _counters():
-    from primia_tpu_torch.ops import (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent,
-                                      cuda_wgrad)
-
-    return (cuda_clahe.launches, cuda_tent.launches, cuda_dcf.launches, cuda_wgrad.launches,
-            cuda_bn.launches, cuda_kernels.launches)
-
-
 def reset_launches():
-    for counts in _counters():
-        for name in counts:
-            counts[name] = 0
+    from primia_tpu_torch.parallel import launch
+
+    launch.reset_launches()
 
 
 def read_launches():
-    return {k: v for counts in _counters() for k, v in counts.items()}
+    from primia_tpu_torch.parallel import launch
+
+    return launch.read_launches()
 
 
 def idle_launches(**nonzero):
@@ -1906,7 +1932,7 @@ def phase_train(torch, seed, work, profile_out):
     say("train", cpu_check="ok", loss_cuda=lg, loss_cpu=lc, loss_rel_diff=rel,
         bn_stats_max_abs_diff=dstat)
     ctx = dict(ini=ini, root=root, run=run, imgs=imgs, labels=labels, mean=mean, std=std,
-               steps=steps)
+               steps=steps, final=finals[0])
     return launches, k2, ctx
 
 
@@ -4292,6 +4318,488 @@ def phase_crypto(torch, seed):
         decrypt_ms=f"{(t3 - t2) * 1e3:.4f}", on="host")
 
 
+# ------------------------------------------------------------- slice 10
+
+DP_RANKS_ONE_CARD = 2  # ranks sharing cuda:0 over gloo on a one-card machine
+DP_TIMED_STEPS, DP_SWITCHED_STEPS = 12, 3
+RANK_TIMEOUT_S = 600.0
+PARTY_BATCH = 4
+FIG_FED_PER_CLASS = ((20, 20, 20), (15, 15, 15), (10, 10, 10))
+
+
+def _host_p50(torch, np, fn, n, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ms, 50))
+
+
+def _bn_stats(model):
+    return {n: t.detach().float().cpu().clone() for n, t in model.state_dict().items()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def parallel_rank(payload):
+    """The rank program of phases 28-29, run by ``parallel/launch.py`` on
+    every rank: (a) one float32 data-parallel step (augmentation, CLAHE,
+    MixUp on) with a recording optimizer: the loss, the fc gradients, the
+    BN running statistics, the launches; (b) the bf16 step timed (p50 of
+    DP_TIMED_STEPS after 3 warm-up steps, 3 profiled: busy ms and idle
+    share), its launches; (c) the gradient all-reduce alone and the noise
+    field drawn whole against half; (d) DP_SWITCHED_STEPS steps under
+    PRIMIA_PALLAS_BN=1 PRIMIA_PALLAS_WGRAD=1 and as many unswitched from
+    the same start, with the switched launches; (e) one secure FedAvg
+    round over the node axis (a node a rank)."""
+    import numpy as np
+    import torch
+
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.parallel import launch, multihost
+    from primia_tpu_torch.parallel.data_parallel import data_parallel_mesh, shard_train_step
+    from primia_tpu_torch.train.optim import make_optimizer
+
+    dev = multihost.rank_device("cuda")
+    torch.cuda.set_device(dev)
+    mesh = data_parallel_mesh()
+    B = TRAIN_BATCH
+    imgs, labels = payload["imgs"], payload["labels"]
+    batches = [(imgs[i:i + B], labels[i:i + B], np.ones(B, np.float32))
+               for i in range(0, len(imgs) - B + 1, B)]
+    seed = payload["seed"]
+    out = {"device": str(dev), "backend": multihost.backend(),
+           "topology": multihost.slice_topology()}
+
+    def fresh(args, record=False):
+        m = create_model(args, num_classes=3, device="cpu")
+        m.load_state_dict(payload["state_dict"])
+        m = m.to(dev, memory_format=torch.channels_last)
+        opt = launch.GradRecorder(m) if record else make_optimizer(args, m)
+        return m, opt, shard_train_step(m, opt, args, payload["mean"], payload["std"],
+                                        mesh=mesh, device=dev)
+
+    # (a) float32, TF32 off
+    m, rec, step = fresh(payload["f32_args"], record=True)
+    launch.reset_launches()
+    loss = float(step(torch.Generator(device=dev).manual_seed(seed), *batches[0], 1e-4))
+    torch.cuda.synchronize()
+    out["f32"] = {"loss": loss, "launches": launch.read_launches(), "stats": _bn_stats(m),
+                  "fc": {k: v for k, v in rec.grads.items() if k.startswith("fc.")}}
+
+    # (b) bf16, timed
+    args = payload["args"]
+    m, opt, step = fresh(args)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    it = iter(range(1 << 30))
+
+    def run():
+        i = next(it)
+        return step(gen, *batches[i % len(batches)], 1e-4)
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    step_ms, losses = [], []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(run()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    timed_launches = launch.read_launches()
+    avgs = profile(torch, lambda: [run() for _ in range(3)], 1)
+    cats = {k: v / 3 for k, v in device_ms_by_category(avgs, 1).items()}
+    p50 = float(np.percentile(step_ms, 50))
+    out["bf16"] = {"step_ms": step_ms, "p50": p50, "losses": losses,
+                   "launches": timed_launches, "busy_ms": sum(cats.values()), "cats": cats,
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    # (c) the step's collectives alone: the flat gradient all-reduce,
+    # MixUp's gather of the augmented rows, a batch norm's (2, 512) sum;
+    # then the noise field drawn whole and for a rank's rows, on rank 0
+    # while the others wait (they share its card)
+    import torch.distributed as dist
+
+    from primia_tpu_torch.parallel.data_parallel import _gather_rows
+
+    n_params = sum(p.numel() for p in opt.params)
+    flat = torch.zeros(n_params + 1, device=dev)
+    out["all_reduce_ms"] = _host_p50(torch, np, lambda: multihost.all_reduce_(flat), 10, 2)
+    out["all_reduce_bytes"] = flat.numel() * 4
+    rows = torch.zeros((B // mesh.size, 3, RES, RES), device=dev).contiguous(
+        memory_format=torch.channels_last)
+    out["gather_ms"] = _host_p50(torch, np, lambda: _gather_rows(rows, mesh.group("data")), 5, 1)
+    small = torch.zeros((2, 512), device=dev)
+    out["bn_sum_ms"] = _host_p50(torch, np, lambda: multihost.all_reduce_(small), 20, 2)
+    dist.barrier()
+    if mesh.index("data") == 0:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for rows_drawn, key in ((B, "noise_whole_ms"), (B // mesh.size, "noise_half_ms")):
+            out[key] = cuda_ms(torch, lambda: torch.randn((rows_drawn, 3, RES, RES),
+                                                          generator=g, device=dev), 20)
+    dist.barrier()
+
+    # (d) the switched step against the unswitched one, from the same start
+    def three(switched):
+        names = ("PRIMIA_PALLAS_BN", "PRIMIA_PALLAS_WGRAD")
+        for k in names:
+            os.environ[k] = "1" if switched else "0"
+        try:
+            _, _, st = fresh(args)
+            gg = torch.Generator(device=dev).manual_seed(seed)
+            launch.reset_launches()
+            ls = [float(st(gg, *batches[i % len(batches)], 1e-4))
+                  for i in range(DP_SWITCHED_STEPS)]
+            torch.cuda.synchronize()
+            return ls, launch.read_launches()
+        finally:
+            for k in names:
+                os.environ.pop(k)
+
+    out["switched"], out["switched_launches"] = three(True)
+    out["unswitched"], _ = three(False)
+
+    # (e) secure FedAvg over the node axis: a node a rank
+    fmesh = multihost.federated_mesh(mesh.size)
+    lo = fmesh.index("node")
+    local = {k: torch.from_numpy(np.array(v[lo:lo + 1])).to(dev)
+             for k, v in payload["fed_stacked"].items()}
+    t0 = time.perf_counter()
+    agg = multihost.secure_fedavg(payload["fed_key"], local, payload["fed_weights"], fmesh)
+    torch.cuda.synchronize()
+    out["fedavg_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fedavg"] = {k: v.cpu() for k, v in agg.items()}
+    return out
+
+
+def phase_data_parallel(torch, seed, work, ctx):
+    """Phases 28-29, slice 10 on ranks of ``torch.distributed``: the
+    canonical INI's train step (ResNet-18 @ 224, global batch 200, CLAHE,
+    MixUp, the noise) data parallel over 2 ranks on cuda:0 over gloo on a
+    one-card machine, or a rank a card over NCCL, spawned by
+    ``parallel/launch.py`` with a deadline each. ``data_parallel``: the
+    2-rank float32 step against the one-process step on the card (loss
+    within 1e-5 relative, fc gradients within 1e-4 of their largest,
+    BN statistics within 1e-5), K1 4 and CLAHE 1 a step on every rank; the
+    bf16 step's p50, the all-reduce ms and bytes, the idle share; the
+    switched step (K7 6, each BN launch 20 a step on every rank) held to
+    the unswitched one. ``multihost``: one secure FedAvg round across the
+    ranks (a node a rank) of two ResNet-18 trees, bit for bit the
+    one-process ``secure_fedavg``. Returns the launch counts by path,
+    summed over the ranks."""
+    import numpy as np
+
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.mpc.aggregation import secure_fedavg
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.nn.jax_params import to_jax_tree
+    from primia_tpu_torch.parallel import launch
+    from primia_tpu_torch.train.steps import build_train_step
+
+    n_cards = torch.cuda.device_count()
+    world = n_cards if n_cards > 1 else DP_RANKS_ONE_CARD
+    backend = "nccl" if n_cards > 1 else "gloo"
+    args = Arguments.from_ini(ctx["ini"])
+    f32 = Arguments.from_ini(ctx["ini"])
+    f32.compute_dtype = "float32"
+    check(args.mixup and args.clahe and args.noise_std > 0 and args.batch_size == TRAIN_BATCH,
+          "unexpected canonical config")
+    torch.manual_seed(seed + 28)
+    sd = create_model(args, num_classes=3, device="cpu").state_dict()
+    imgs, labels = ctx["imgs"], ctx["labels"].astype(np.int64)
+    mean, std = ctx["mean"], ctx["std"]
+
+    # the one-process float32 step on the card, from the same weights
+    dev = torch.device("cuda")
+    m = create_model(f32, num_classes=3, device="cpu")
+    m.load_state_dict(sd)
+    m = m.to(dev, memory_format=torch.channels_last)
+    rec = launch.GradRecorder(m)
+    step = build_train_step(m, rec, f32, mean, std, device=dev)
+    ref_loss = float(step(torch.Generator(device=dev).manual_seed(seed),
+                          imgs[:TRAIN_BATCH], labels[:TRAIN_BATCH],
+                          np.ones(TRAIN_BATCH, np.float32), 1e-4))
+    ref_stats, ref_fc = _bn_stats(m), {k: v for k, v in rec.grads.items() if k.startswith("fc.")}
+    del m, rec, step
+
+    # two nodes' ResNet-18 trees for the FedAvg round, leaves flattened by path
+    trees = []
+    for k in range(world):
+        torch.manual_seed(seed + 100 + k)
+        params = to_jax_tree(create_model(args, num_classes=3, device="cpu"))[0]
+        trees.append(_flat_tree(params))
+    fed = {k: np.stack([t[k] for t in trees]) for k in trees[0]}
+    fed_w = np.linspace(1.0, 2.0, world) / np.linspace(1.0, 2.0, world).sum()
+    fed_key = (seed, 777, 1)
+
+    say("data_parallel", ranks=world, backend=backend, devices=n_cards,
+        config=CONFIG.relative_to(ROOT), global_batch=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    got = launch.spawn(f"{ROOT / 'chip_smoke.py'}:parallel_rank", world,
+                       {"seed": seed, "imgs": imgs[:3 * TRAIN_BATCH],
+                        "labels": labels[:3 * TRAIN_BATCH], "mean": mean, "std": std,
+                        "args": args, "f32_args": f32, "state_dict": sd, "fed_stacked": fed,
+                        "fed_weights": fed_w, "fed_key": fed_key},
+                       device="cuda", timeout=RANK_TIMEOUT_S, workdir=work / "ranks")
+    spawn_s = time.perf_counter() - t0
+    res = [r.result for r in got]
+    for r in res:
+        check(r["backend"] == backend, f"rank backend {r['backend']}, expected {backend}")
+    # (a) float32 against the one process
+    worst = {}
+    for i, r in enumerate(res):
+        a = r["f32"]
+        rel = abs(a["loss"] - ref_loss) / abs(ref_loss)
+        dfc = max(float((a["fc"][k] - ref_fc[k]).abs().max() / ref_fc[k].abs().max())
+                  for k in ref_fc)
+        dst = max(float((a["stats"][k] - ref_stats[k]).abs().max()) for k in ref_stats)
+        check(rel <= 1e-5 and dfc <= 1e-4 and dst <= 1e-5,
+              f"rank {i} f32 step: loss {a['loss']} vs {ref_loss} (rel {rel}), fc rel {dfc}, "
+              f"BN stats {dst}")
+        check(a["launches"]["tent_rows"] == 4 and a["launches"]["clahe"] == 1,
+              f"rank {i} f32 step launches {a['launches']}")
+        worst = {"loss_rel": max(worst.get("loss_rel", 0), rel),
+                 "fc_rel": max(worst.get("fc_rel", 0), dfc),
+                 "bn_stats_abs": max(worst.get("bn_stats_abs", 0), dst)}
+    say("data_parallel", f32_check="ok", loss_one_process=ref_loss,
+        loss_ranks=[r["f32"]["loss"] for r in res], **{k: f"{v:.3g}" for k, v in worst.items()})
+    # (b)-(c) bf16 timing
+    for i, r in enumerate(res):
+        b = r["bf16"]
+        want = idle_launches(tent_rows=4 * DP_TIMED_STEPS, clahe=DP_TIMED_STEPS)
+        check(b["launches"] == want, f"rank {i} bf16 launches {b['launches']}, expected {want}")
+        check(all(np.isfinite(b["losses"])), f"rank {i} bf16 losses {b['losses']}")
+        check(b["losses"] == res[0]["bf16"]["losses"], "the ranks report different losses")
+        idle = 1.0 - b["busy_ms"] / b["p50"]
+        say("data_parallel", rank=i, device=r["device"], compute_dtype="bfloat16",
+            steps_timed=DP_TIMED_STEPS, step_ms_p50=f"{b['p50']:.4f}",
+            img_per_s_p50=f"{TRAIN_BATCH / (b['p50'] * 1e-3):.2f}",
+            device_busy_ms_per_step=f"{b['busy_ms']:.4f}", idle_share=f"{idle:.4f}",
+            peak_memory_gb=f"{b['peak_gb']:.3f}", all_reduce_ms_p50=f"{r['all_reduce_ms']:.4f}",
+            all_reduce_bytes=r["all_reduce_bytes"], mixup_gather_ms_p50=f"{r['gather_ms']:.4f}",
+            bn_sum_ms_p50=f"{r['bn_sum_ms']:.4f}")
+        say("data_parallel", rank=i,
+            device_ms_per_step=json.dumps({k: round(v, 6) for k, v in b["cats"].items()}))
+    busy = sum(r["bf16"]["busy_ms"] for r in res)
+    p50 = max(r["bf16"]["p50"] for r in res)
+    say("data_parallel", ranks_share_a_card=n_cards == 1,
+        card_busy_ms_per_step=f"{busy:.4f}" if n_cards == 1 else "per rank above",
+        card_idle_share=f"{1.0 - busy / p50:.4f}" if n_cards == 1 else "per rank above",
+        noise_draw_ms_whole_batch=f"{res[0]['noise_whole_ms']:.6f}",
+        noise_draw_ms_rank_rows=f"{res[0]['noise_half_ms']:.6f}")
+    # (d) switched
+    for i, r in enumerate(res):
+        want = idle_launches(tent_rows=4 * DP_SWITCHED_STEPS, clahe=DP_SWITCHED_STEPS,
+                             conv3x3_wgrad=6 * DP_SWITCHED_STEPS,
+                             **{k: 20 * DP_SWITCHED_STEPS for k in BN_LAUNCHES})
+        check(r["switched_launches"] == want,
+              f"rank {i} switched launches {r['switched_launches']}, expected {want}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["switched"], r["unswitched"])]
+        check(max(rel) <= 2e-2 and all(np.isfinite(r["switched"])),
+              f"rank {i} switched losses {r['switched']} vs unswitched {r['unswitched']}")
+        say("data_parallel", rank=i, switched_steps=DP_SWITCHED_STEPS,
+            switched_losses=r["switched"], unswitched_losses=r["unswitched"],
+            max_loss_rel_diff=f"{max(rel):.3g}")
+    # (e) multihost: the FedAvg round
+    ref = secure_fedavg(fed_key, {k: torch.from_numpy(v).to(dev) for k, v in fed.items()}, fed_w)
+    for i, r in enumerate(res):
+        bad = [k for k in ref if not torch.equal(r["fedavg"][k], ref[k].cpu())]
+        check(not bad, f"rank {i} secure FedAvg differs from one process at {bad[:3]}")
+    say("multihost", ranks=world, backend=backend, leaves=len(ref),
+        values=sum(v[0].size for v in fed.values()), bit_for_bit="yes",
+        round_ms=[f"{r['fedavg_ms']:.4f}" for r in res], spawn_seconds=f"{spawn_s:.1f}",
+        rank_seconds=[f"{x.seconds:.1f}" for x in got])
+
+    def summed(counts):
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    return {"data_parallel": summed([r["bf16"]["launches"] for r in res]),
+            "data_parallel_switched": summed([r["switched_launches"] for r in res])}
+
+
+def _flat_tree(tree, prefix=""):
+    """A nested dict/list tree as {"a/0/b": numpy leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def phase_party(torch, seed, work, ctx):
+    """Phase 30, slice 10's ``party_devices``: the encrypted predict with
+    each party's shares on its own device, bit for bit the unsplit predict
+    of the same seed: ResNet-18 @ 224 at batch 4 under fss and snn on
+    ("cuda:0", "cuda:0") (timed beside the unsplit), SimpleConv @ 28 with
+    party 1 on the CPU (shares cross devices at every opening), and
+    ("cuda:0", "cuda:1") where a second card exists; a secure FedAvg of
+    two ResNet-18 trees with party 1 on the CPU. K4's launches counted on
+    the split fss forward (21). Returns the launches of the split ResNet
+    fss forwards."""
+    import numpy as np
+
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.mpc.aggregation import secure_fedavg
+    from primia_tpu_torch.mpc.inference import build_encrypted_predict
+    from primia_tpu_torch.nn import create_model
+
+    dev = torch.device("cuda")
+    args = Arguments.from_ini(ctx["ini"])
+    torch.manual_seed(seed + 30)
+    model = create_model(args, num_classes=3, device="cuda")
+    x = ctx["imgs"][:PARTY_BATCH]
+    mean, std = ctx["mean"], ctx["std"]
+    launches = None
+    for protocol in ("fss", "snn"):
+        def pred(parties):
+            return build_encrypted_predict(model, args, mean, std, dev, protocol=protocol,
+                                           seed=seed + 1, party_devices=parties)
+        ref = pred(None)(x)
+        reset_launches()
+        got = pred(("cuda:0", "cuda:0"))(x)
+        torch.cuda.synchronize()
+        n = read_launches()
+        check(torch.equal(got, ref), f"party-split ResNet-18 {protocol} logits differ")
+        check(bool(torch.isfinite(got).all()), f"{protocol}: non-finite logits")
+        want = idle_launches(clahe=1, dcf_sign=SIGNS_PER_FORWARD if protocol == "fss" else 0)
+        check(n == want, f"split {protocol} forward launches {n}, expected {want}")
+        if protocol == "fss":
+            launches = n
+        unsplit = pred(None)
+        split = pred(("cuda:0", "cuda:0"))
+        ms_u = _host_p50(torch, np, lambda: unsplit(x), 3)
+        ms_s = _host_p50(torch, np, lambda: split(x), 3)
+        say("party", model="resnet-18", protocol=protocol, batch=PARTY_BATCH,
+            party_devices="cuda:0,cuda:0", bit_for_bit="yes", launches=json.dumps(n),
+            unsplit_ms_p50=f"{ms_u:.4f}", split_ms_p50=f"{ms_s:.4f}",
+            split_over_unsplit=f"{ms_s / ms_u:.3f}")
+
+    pairs = [("cuda:0", "cpu")] + ([("cuda:0", "cuda:1")] if torch.cuda.device_count() > 1
+                                   else [])
+    cargs = Arguments(model="simpleconv", train_resolution=28, inference_resolution=28,
+                      pooling_type="max")
+    torch.manual_seed(seed + 31)
+    conv = create_model(cargs, num_classes=3, device="cuda")
+    cx = np.random.default_rng(seed).integers(0, 256, (PARTY_BATCH, 28, 28, 1), dtype=np.uint8)
+    for parties in pairs:
+        for protocol in ("fss", "snn"):
+            def cpred(p):
+                return build_encrypted_predict(conv, cargs, [0.5], [0.25], dev,
+                                               protocol=protocol, seed=seed + 2, party_devices=p)
+            ref = cpred(None)(cx)
+            split = cpred(parties)
+            t0 = time.perf_counter()
+            got = split(cx)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(got, ref),
+                  f"party-split SimpleConv {protocol} on {parties} differs from the unsplit")
+            say("party", model="simpleconv@28", protocol=protocol, batch=PARTY_BATCH,
+                party_devices=",".join(parties), bit_for_bit="yes", split_ms=f"{ms:.4f}")
+    # secure FedAvg with party 1 on the CPU
+    trees = []
+    for k in range(2):
+        torch.manual_seed(seed + 40 + k)
+        trees.append({n: p.detach() for n, p in
+                      create_model(args, num_classes=3, device="cuda").named_parameters()})
+    stacked = {n: torch.stack([t[n] for t in trees]) for n in trees[0]}
+    ref = secure_fedavg((seed, 5), stacked, [0.25, 0.75])
+    t0 = time.perf_counter()
+    got = secure_fedavg((seed, 5), stacked, [0.25, 0.75], party_devices=("cuda:0", "cpu"))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(got[n], ref[n]) for n in ref), "party-split secure FedAvg differs")
+    say("party", what="secure_fedavg resnet-18 x 2 nodes", party_devices="cuda:0,cpu",
+        bit_for_bit="yes", ms=f"{ms:.4f}")
+    return launches
+
+
+def phase_tf_export(torch, seed, work, ctx):
+    """Phase 31: the TF SavedModel bridge (``nn/tf_export.py``): whether
+    TensorFlow imports here; when it does, the train CLI's card-trained
+    ResNet-18 checkpoint exported (TF on the host) and its SavedModel's
+    logits held to the card's eval logits within 1e-4."""
+    import numpy as np
+
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.nn.jax_params import from_jax_tree
+    from primia_tpu_torch.nn.tf_export import export_checkpoint, load_saved_model, tf_available
+    from primia_tpu_torch.train import checkpoint as ckpt
+    from primia_tpu_torch.train.steps import build_eval_step
+
+    if not tf_available():
+        say("tf_export", tf_available=False, note="TensorFlow does not import here; skipped")
+        return
+    import tensorflow as tf
+
+    tf.config.set_visible_devices([], "GPU")  # the SavedModel runs on the host
+    state = ckpt.load_model(ctx["final"])
+    args = state["args"]
+    mean, std = state["val_mean_std"]
+    model = create_model(args, num_classes=3, device="cuda")
+    msd = state["model_state_dict"]
+    model.load_state_dict(from_jax_tree(msd["params"], msd["state"]))
+    x = ctx["imgs"][:4]
+    _, want = build_eval_step(model, args, mean, std, device="cuda")(
+        x, np.zeros(4, np.int64), np.ones(4, np.float32))
+    t0 = time.perf_counter()
+    path = export_checkpoint(str(ctx["final"]), str(work / "savedmodel"))
+    export_s = time.perf_counter() - t0
+    got = load_saved_model(path)(x)
+    err = float(np.abs(got - want.cpu().numpy()).max())
+    check(err <= 1e-4, f"SavedModel logits {err} from the card's eval logits")
+    say("tf_export", tf_available=True, tf=tf.__version__, max_abs_err=err,
+        export_seconds=f"{export_s:.1f}")
+
+
+def phase_figures(torch, seed, work, ctx):
+    """Phase 32: the paper-figure sweeps on the card, each over two values
+    for one epoch: ``cli/figure_lambda.py`` on the synthetic train set and
+    ``cli/figure_sigma.py`` on three small federated shards, each writing
+    its CSV under ``build/chip_smoke/figures``; the CSV's header and one
+    finite row checked."""
+    import csv
+
+    import numpy as np
+
+    from primia_tpu_torch.cli import figure_lambda, figure_sigma
+
+    figs = work / "figures"
+    fed = figs / "fed"
+    write_federated_dataset(np, np.random.default_rng(seed + 32), fed, FIG_FED_PER_CLASS)
+    cwd = os.getcwd()
+    os.chdir(figs)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            t0 = time.perf_counter()
+            figure_lambda.main(["--lambdas", "0.5", "0.9", "--epochs", "1", "--data_dir",
+                                str(ctx["root"] / "train"), "--device", "cuda"])
+            t1 = time.perf_counter()
+            figure_sigma.main(["--sigmas", "1", "2", "--epochs", "1", "--data_dir", str(fed),
+                               "--device", "cuda"])
+            t2 = time.perf_counter()
+    finally:
+        os.chdir(cwd)
+    (work / "figures.log").write_text(out.getvalue())
+    for name, heads in (("lambda_results.csv", ["0.5", "0.9"]), ("sigma_results.csv", ["1", "2"])):
+        with open(figs / name, newline="") as f:
+            rows = list(csv.reader(f))
+        check(len(rows) == 2 and rows[0] == heads and all(np.isfinite(float(v)) for v in rows[1]),
+              f"{name}: {rows}")
+        say("figures", csv=str((figs / name).relative_to(ROOT)), header=rows[0], row=rows[1])
+    say("figures", lambda_seconds=f"{t1 - t0:.1f}", sigma_seconds=f"{t2 - t1:.1f}")
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
@@ -4391,6 +4899,14 @@ def main(argv=None) -> int:
         lap("enc_rnn")
         phase_crypto(torch, opts.seed)
         lap("crypto")
+        by_path.update(phase_data_parallel(torch, opts.seed, work, ctx))
+        lap("data_parallel")
+        by_path["party"] = phase_party(torch, opts.seed, work, ctx)
+        lap("party")
+        phase_tf_export(torch, opts.seed, work, ctx)
+        lap("tf_export")
+        phase_figures(torch, opts.seed, work, ctx)
+        lap("figures")
         say("seconds", **seconds, total=round(sum(seconds.values()), 1))
         for name, meta in KERNELS.items():
             for path in (meta["path"], *meta.get("also", ())):

@@ -1,1 +1,3 @@
-"""Command-line entry points of the port: ``inference`` and ``evaluate``."""
+"""Command-line entry points of the port: ``train``, ``inference``,
+``evaluate``, ``find_config``, ``warm`` and the figure sweeps
+``figure_sigma`` and ``figure_lambda``."""

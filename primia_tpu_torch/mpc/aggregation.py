@@ -17,6 +17,11 @@ leaf's device, seeded from the caller's key (a tuple of integers, such
 as ``(seed, 777, round)``) and the leaf's CRC-32 key: the JAX package's
 ``fold_in(key, _leaf_key(path))``. The work stays on the leaf's device:
 no host round-trip.
+
+``party_devices`` (the JAX package's ``party_sharding``): each party's
+shares go to its own device, each party sums its own over the nodes, and
+the reveal is the one opening, on the leaf's device. Bit for bit the
+unsplit result.
 """
 
 from __future__ import annotations
@@ -81,7 +86,8 @@ def _node_weights(weights, leaf: torch.Tensor) -> torch.Tensor:
 
 
 def secure_fedavg_leaf(key: Sequence[int], path: Path, leaf: torch.Tensor, weights,
-                       frac_bits: int = fixed.DEFAULT_FRAC_BITS) -> torch.Tensor:
+                       frac_bits: int = fixed.DEFAULT_FRAC_BITS,
+                       party_devices=None) -> torch.Tensor:
     """One leaf of :func:`secure_fedavg`: ``leaf`` is ``(N_nodes, ...)``,
     ``weights`` (N_nodes,) floats or, to spare a copy a leaf, the tensor
     :func:`node_weights` gives on the leaf's device."""
@@ -89,20 +95,25 @@ def secure_fedavg_leaf(key: Sequence[int], path: Path, leaf: torch.Tensor, weigh
         return leaf[0]
     ring = fixed.encode(leaf.double() * _node_weights(weights, leaf), frac_bits)
     shared = S.share(S.stream(leaf.device, *key, _leaf_key(path)), ring)
+    parties = S.party_devices_of(party_devices)
+    if parties is not None:
+        shared = S.AShare(S.split(shared.data, parties, leaf.device))
     revealed = S.reconstruct(AShareSumNodes(shared))
     return fixed.decode(revealed, frac_bits).to(leaf.dtype)
 
 
 def secure_fedavg(key: Sequence[int], stacked_tree, weights,
-                  frac_bits: int = fixed.DEFAULT_FRAC_BITS):
+                  frac_bits: int = fixed.DEFAULT_FRAC_BITS, party_devices=None):
     """Weighted average of node-stacked trees via MPC share-sum.
 
     ``stacked_tree``: tree with leaves (N_nodes, ...); ``weights``:
     (N_nodes,) floats summing to 1; ``key``: the integers the shares'
-    streams are seeded from. Returns the aggregated (unstacked) tree.
-    Count leaves pass through from node 0."""
+    streams are seeded from; ``party_devices``: a pair of devices for the
+    two parties' shares (the module's note). Returns the aggregated
+    (unstacked) tree. Count leaves pass through from node 0."""
     return map_with_path(
-        lambda path, leaf: secure_fedavg_leaf(key, path, leaf, weights, frac_bits),
+        lambda path, leaf: secure_fedavg_leaf(key, path, leaf, weights, frac_bits,
+                                              party_devices),
         stacked_tree)
 
 

@@ -14,6 +14,13 @@ both parties' ``b`` and against ``eps`` is one product with the three
 right operands stacked on the output axis, and both parties' ``a``
 against ``eps`` one product with the party axis folded into the rows (or
 the batch). The dealer is simulated from a ``torch.Generator``.
+
+Party-split operands (``shares.Parties``): the dealer still draws the
+triple on its device, each party receives its half of a, b and c
+(``shares.deliver``), delta and eps are opened, and each party forms its
+own ``c + f(delta, b) + f(a, eps)`` on its device, party 0 adding
+``f(delta, eps)``: two products a party where the unsplit path batches
+both parties into one.
 """
 
 from __future__ import annotations
@@ -45,6 +52,23 @@ def _open(x: AShare, y: AShare, t: Triple):
     return S.reconstruct(S.sub(x, t.a)), S.reconstruct(S.sub(y, t.b))
 
 
+def _deliver(t: Triple, x: AShare) -> Triple:
+    """The triple for the parties that hold x (as it is when unsplit)."""
+    return Triple(*(AShare(S.deliver(s.data, x.data)) for s in t))
+
+
+def _per_party(f: Callable, t: Triple, delta: torch.Tensor, eps: torch.Tensor) -> AShare:
+    """z = c + f(delta, b) + f(a, eps) by each party on its own device,
+    party 0 adding f(delta, eps): the split form of the combines below."""
+    a, b, c = t.a.data, t.b.data, t.c.data
+    z = []
+    for p in (0, 1):
+        dp, ep = S.public_on(delta, b[p]), S.public_on(eps, b[p])
+        zp = c[p] + f(dp, b[p]) + f(a[p], ep)
+        z.append(zp + f(dp, ep) if p == 0 else zp)
+    return AShare(S.Parties(z[0], z[1], a.home))
+
+
 def bilinear(f: Callable, x: AShare, y: AShare, triple: Triple) -> AShare:
     """z = f(x, y) on sharings through ``triple`` (the online phase), for
     any bilinear ``f`` of two int64 ring tensors: ``delta`` and ``eps``
@@ -60,18 +84,20 @@ def bilinear(f: Callable, x: AShare, y: AShare, triple: Triple) -> AShare:
 
 def mul(gen: torch.Generator, x: AShare, y: AShare) -> AShare:
     """Elementwise product of two sharings of one shape."""
-    t = gen_triple(gen, torch.mul, x.shape, y.shape)
+    t = _deliver(gen_triple(gen, torch.mul, x.shape, y.shape), x)
     delta, eps = _open(x, y, t)
     z = t.c.data + delta * t.b.data + t.a.data * eps
-    z[0] += delta * eps
+    z[0] += S.public_on(delta * eps, z[0])
     return AShare(z)
 
 
 def matmul(gen: torch.Generator, x: AShare, y: AShare) -> AShare:
     """(M, K) @ (K, N) on sharings."""
     f = ring_ops.ring_matmul
-    t = gen_triple(gen, f, x.shape, y.shape)
+    t = _deliver(gen_triple(gen, f, x.shape, y.shape), x)
     delta, eps = _open(x, y, t)
+    if isinstance(t.a.data, S.Parties):
+        return _per_party(f, t, delta, eps)
     M, N = x.shape[0], y.shape[1]
     d = f(delta, torch.cat([t.b.data[0], t.b.data[1], eps], dim=1)).reshape(M, 3, N)
     ae = f(t.a.data.reshape(2 * M, -1), eps).reshape(2, M, N)
@@ -83,8 +109,10 @@ def matmul(gen: torch.Generator, x: AShare, y: AShare) -> AShare:
 def conv2d(gen: torch.Generator, x: AShare, w: AShare, stride: int, padding: int) -> AShare:
     """NCHW x OIHW convolution on sharings."""
     f = lambda a, b: ring_ops.ring_conv2d(a, b, stride, padding)  # noqa: E731
-    t = gen_triple(gen, f, x.shape, w.shape)
+    t = _deliver(gen_triple(gen, f, x.shape, w.shape), x)
     delta, eps = _open(x, w, t)
+    if isinstance(t.a.data, S.Parties):
+        return _per_party(f, t, delta, eps)
     B, O = x.shape[0], w.shape[0]
     d = f(delta, torch.cat([t.b.data[0], t.b.data[1], eps]))
     d = d.reshape(B, 3, O, *d.shape[2:])

@@ -22,6 +22,12 @@ On a CUDA tensor :func:`sign_shares` launches K4 or raises; the split form
 is not its fallback. The JAX package's tiled ``lax.map`` form is its XLA
 fallback and is not ported: K4 takes any N in one launch and keeps no key
 material.
+
+Party-split sharings (``shares.Parties``): K4 fuses the dealer's key
+generation with both parties' evaluation, so it runs on the dealer's
+device, where the masked value is opened; each party then receives its
+half of K4's output (party 1's on party 1's device) and of ``c``'s
+sharing, and combines on its own device.
 """
 
 from __future__ import annotations
@@ -67,10 +73,11 @@ def gen_compare(gen: torch.Generator, n: int) -> CompareKeys:
     return CompareKeys(r_sh, keys, c_sh)
 
 
-def _combine(a: torch.Tensor, e: torch.Tensor) -> AShare:
+def _combine(a: torch.Tensor, e) -> AShare:
     """msb = A + (1 - 2A) e, the public A applied by party 0 alone."""
     lin = 1 - 2 * a
-    return AShare(torch.stack([a + lin * e[0], lin * e[1]]))
+    on = S.public_on
+    return AShare(S.join(e, on(a, e[0]) + on(lin, e[0]) * e[0], on(lin, e[1]) * e[1]))
 
 
 def msb(x: AShare, ck: CompareKeys) -> AShare:
@@ -89,6 +96,8 @@ def sign_shares(gen: torch.Generator, x: AShare) -> AShare:
     Draws from ``gen`` as :func:`gen_compare` does."""
     flat = S.reshape(x, (-1,))
     r32, seeds, c, c_sh, r_sh = _draw(gen, flat.shape[0])
+    r_sh = AShare(S.deliver(r_sh.data, flat.data))
     x_hat = S.reconstruct(S.add(flat, r_sh)) & MASK32  # the opening
     w = dcf_sign(seeds, (r32 & _LOW31).int(), c.int(), (x_hat & _LOW31).int(), N_BITS)
-    return S.reshape(_combine(x_hat >> 31, w + c_sh.data), x.shape)
+    e = S.deliver(w, flat.data) + S.deliver(c_sh.data, flat.data)
+    return S.reshape(_combine(x_hat >> 31, e), x.shape)

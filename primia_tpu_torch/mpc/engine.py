@@ -178,7 +178,7 @@ class MpcEngine:
             # the public pad enters party 0's share only: padding both
             # would reconstruct to 2 * _PAD_NEG = -2^31, outside the domain
             pad = (padding,) * 4
-            d = torch.stack([F.pad(d[0], pad, value=_PAD_NEG), F.pad(d[1], pad, value=0)])
+            d = S.join(d, F.pad(d[0], pad, value=_PAD_NEG), F.pad(d[1], pad, value=0))
         H, W = d.shape[-2:]
         Ho = (H - window) // stride + 1
         Wo = (W - window) // stride + 1

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from primia_tpu_torch.mpc import shares as S
+
 DEFAULT_FRAC_BITS = 16
 
 
@@ -36,5 +38,6 @@ def truncate_shares(shares: torch.Tensor, frac_bits: int = DEFAULT_FRAC_BITS) ->
     """SecureML local truncation of a (2, ...) additive sharing: party 0
     shifts its share, party 1 shifts the negation and negates back. For
     |x| << 2^(63 - frac_bits) the reconstruction is (x >> frac_bits) + e
-    with |e| <= 1."""
-    return torch.stack([shares[0] >> frac_bits, -((-shares[1]) >> frac_bits)])
+    with |e| <= 1. Each party shifts its own half (``shares.Parties``
+    too)."""
+    return S.join(shares, shares[0] >> frac_bits, -((-shares[1]) >> frac_bits))

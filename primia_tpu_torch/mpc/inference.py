@@ -30,6 +30,17 @@ on the device seeded from ``(stream, call, tile)``. Every batch gets fresh
 masks and Beaver triples: the parties open ``x - a`` for each product, so
 one mask ``a`` over two batches would reveal their difference. (The JAX
 package's ``build_encrypted_predict`` draws the same streams at every call.)
+
+``party_devices`` puts the two computing parties on two devices (the JAX
+package's ``party_sharding``): every sharing's halves live on their
+party's device (``shares.Parties``), the dealer and the data owner draw
+on ``device`` in the unsplit order and deliver each party its half, and
+the halves meet only at openings (Beaver's delta and eps, the masked
+value of each comparison, SecureNN's borrow, the logits), which land on
+``device``. Under fss, K4 fuses the dealer's key generation with both
+parties' evaluation: it runs on ``device`` and party 1's output half is
+delivered to party 1's device. The logits are bit for bit the unsplit
+ones.
 """
 
 from __future__ import annotations
@@ -203,7 +214,8 @@ def model_forward(E: MpcEngine, P: Dict[str, AShare], model: nn.Module, x: AShar
 def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
                             precision_fractional: int = fixed.DEFAULT_FRAC_BITS,
                             protocol: str = "snn",
-                            batch_tile: Optional[int] = None, seed: int = 0) -> Callable:
+                            batch_tile: Optional[int] = None, seed: int = 0,
+                            party_devices=None) -> Callable:
     """Returns ``predict(images_u8) -> logits`` over secret shares, called
     as the plain ``train/steps.py:build_predict_step``'s: (B, R, R, C)
     uint8 NHWC images in, (B, num_classes) float32 logits on ``device``
@@ -214,8 +226,15 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     ``batch_tile`` images at a time, each tile with its own streams; the
     tail is padded with copies of the first image and sliced off. ``seed``
     numbers the streams too (a grid node keeps one predict function a
-    request seed); 0 gives the streams above."""
+    request seed); 0 gives the streams above. ``party_devices``: a pair of
+    devices, party 0's and party 1's (the module's note); None keeps both
+    parties' shares stacked on ``device``."""
     device = torch.device(device)
+    parties = S.party_devices_of(party_devices)
+
+    def place(sh: AShare) -> AShare:
+        return sh if parties is None else AShare(S.split(sh.data, parties, device))
+
     check_protocol(protocol)
     frac = precision_fractional
     use_clahe = bool(args.clahe)
@@ -225,7 +244,8 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     model.eval()
     weights = {k: v.to(device) for k, v in folded_weights(model).items()}
     salt = (seed,) if seed else ()
-    shared = encode_and_share(S.stream(device, _MODEL, *salt), weights, frac)
+    shared = {k: place(v) for k, v in
+              encode_and_share(S.stream(device, _MODEL, *salt), weights, frac).items()}
     calls = itertools.count()
 
     @torch.inference_mode()
@@ -235,7 +255,7 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
         if use_clahe:
             x = clahe(x, clip_limit=1.0, tiles=8, channels_first=True)
         x = (x - mean_t) / std_t
-        xs = S.share(S.stream(device, _DATA, call, idx, *salt), fixed.encode(x, frac))
+        xs = place(S.share(S.stream(device, _DATA, call, idx, *salt), fixed.encode(x, frac)))
         E = MpcEngine(MpcContext(S.stream(device, _DEALER, call, idx, *salt), frac, protocol))
         return reveal_and_decode(model_forward(E, shared, model, xs, swap), frac).float()
 

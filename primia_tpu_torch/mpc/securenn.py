@@ -25,6 +25,11 @@ PyTorch has no unsigned arithmetic on the card, so:
   which leaves every masked residue as the JAX package's int32 ``(t * s) %
   67`` (``%`` on tensors is floor-mod, as ``jnp``'s).
 
+Party-split sharings (``shares.Parties``): the dealer draws on its
+device; each party receives its halves of the keys, computes its masked
+residues on its device, and the dealer opens their sum (an opening on
+the dealer's device) and shares the borrow back.
+
 Randomness is drawn from a ``torch.Generator`` on the shares' device, in
 the order the JAX package splits its keys. :func:`msb` and :func:`_borrow`
 take the dealer's material explicitly, so tests hand both packages the
@@ -115,12 +120,12 @@ def _borrow(cbits: torch.Tensor, rbits_sh: torch.Tensor, s: torch.Tensor) -> tor
     sends ``t * s``, the dealer opens their sum."""
     c, r, s = _bit_major(cbits), _bit_major(rbits_sh), _bit_major(s)  # (nb, N), (2, nb, N)
     e = r - 2 * c * r
-    e[0] += c
+    e[0] += S.public_on(c, e[0])
     prefix = torch.cumsum(e, dim=1, dtype=torch.int16) - e
     t = prefix - r
-    t[0] += c + 1
+    t[0] += S.public_on(c + 1, t[0])
     d = (t % _P) * s % _P  # each party's masked residues
-    dv = (d[0] + d[1]) % _P
+    dv = S.reconstruct(AShare(d)) % _P  # the dealer opens their sum
     return (dv == 0).any(dim=0).to(torch.int64)
 
 
@@ -142,15 +147,16 @@ def msb(gen: torch.Generator, x: AShare, keys: SnnKeys) -> AShare:
     n_bits from the keys; ``gen`` draws the Beaver triple."""
     nb = keys.rbits_sh.shape[-1]
     n_bits = nb + 1
+    b_r = AShare(S.deliver(keys.b_r.data, x.data))
     # the opening of c = x + r mod 2^n: each party adds its mask share
-    masked = x.data + keys.r_sh
-    c = _wrap(masked[0] + masked[1], n_bits)
+    masked = x.data + S.deliver(keys.r_sh, x.data)
+    c = _wrap(S.reconstruct(AShare(masked)), n_bits)
     b_c = (c >> nb) & 1  # public bit_{n-1}(c)
-    beta = _borrow(_decompose(c, nb), keys.rbits_sh, keys.s)
-    borrow = AShare(torch.stack([keys.u, beta - keys.u]))
+    beta = _borrow(_decompose(c, nb), S.deliver(keys.rbits_sh, x.data), keys.s)
+    borrow = AShare(S.deliver(torch.stack([keys.u, beta - keys.u]), x.data))
     # msb = b_c XOR b_r XOR borrow; one Beaver product for b_r XOR borrow
-    br_x_bw = beaver.mul(gen, keys.b_r, borrow)
-    B = S.add(S.add(keys.b_r, borrow), S.mul_public(br_x_bw, -2))
+    br_x_bw = beaver.mul(gen, b_r, borrow)
+    B = S.add(S.add(b_r, borrow), S.mul_public(br_x_bw, -2))
     return S.add_public(S.mul_public(B, 1 - 2 * b_c), b_c)
 
 

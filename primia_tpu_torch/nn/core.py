@@ -167,6 +167,9 @@ class Norm(nn.Module):
 
     momentum = 0.1
     groups = 32  # group norm's groups (min(groups, C)), as the JAX package's default
+    # data parallelism over ranks (parallel/data_parallel.py): the ranks
+    # that share the batch, whose statistics train-mode batch norm takes
+    ranks = None
 
     def __init__(self, c: int, kind: str = "batch", eps: float = 1e-5):
         super().__init__()
@@ -187,6 +190,10 @@ class Norm(nn.Module):
                 self.num_batches_tracked.add_(1)
             if x.dim() == 4 and x.dtype == torch.bfloat16 and use_pallas_bn():
                 return self._bn_train(x)
+            if self.ranks is not None:
+                return _SyncBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                            self.running_var, self.eps, self.momentum,
+                                            self.ranks)
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=True, momentum=self.momentum,
                                 eps=self.eps)
@@ -199,5 +206,55 @@ class Norm(nn.Module):
         the unbiased variance, ``(1 - m) * old + m * batch``."""
         with torch.autocast(x.device.type, enabled=False):
             y, _, _ = bn_train(x, self.weight, self.bias, self.eps, self.running_mean,
-                               self.running_var, self.momentum)
+                               self.running_var, self.momentum, ranks=self.ranks)
         return y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the batch that ``ranks`` share, each
+    holding an equal number of its rows: the statistics of the whole
+    batch, as the JAX step's (XLA partitions its reductions).
+
+    Forward: each rank's per-channel mean and centred sum of squares
+    (float32) are gathered (``ranks.gather``) and merged (Chan's
+    pairwise update: mean of the means, M2 = sum M2_r + n sum (mean_r -
+    mean)^2); y = (x - mean) rsqrt(var + eps) gamma + beta in x's dtype;
+    the running statistics move as ``F.batch_norm`` moves them, with the
+    whole batch's unbiased variance. Backward: the per-channel sums of g
+    and g xhat are summed over the ranks (``ranks.sum_``) for dx; gamma's
+    and beta's gradients stay this rank's own sums, which the step's
+    gradient reduction adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, momentum, ranks):
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        n = x.numel() // x.shape[1]
+        mean_r = xf.mean(dims)
+        m2_r = (xf - _channel(mean_r)).square().sum(dims)
+        g = ranks.gather(torch.stack([mean_r, m2_r]))  # (ranks, 2, C)
+        mean = g[:, 0].mean(0)
+        m2 = g[:, 1].sum(0) + n * (g[:, 0] - mean).square().sum(0)
+        N = n * ranks.size
+        var = m2 / N
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - _channel(mean)) * _channel(invstd)
+        y = (xhat * _channel(weight.float()) + _channel(bias.float())).to(x.dtype)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+            running_var.mul_(1 - momentum).add_(m2 / max(N - 1, 1), alpha=momentum)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.ranks, ctx.N = ranks, N
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        xhat, weight, invstd = ctx.saved_tensors
+        gf = gy.float()
+        dims = [0] + list(range(2, gf.dim()))
+        local = torch.stack([gf.sum(dims), (gf * xhat).sum(dims)])
+        total = ctx.ranks.sum_(local.clone())
+        dx = _channel(weight.float() * invstd) * (
+            gf - _channel(total[0] / ctx.N) - xhat * _channel(total[1] / ctx.N))
+        return (dx.to(gy.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype),
+                None, None, None, None, None)

@@ -212,12 +212,19 @@ def _hsv_to_rgb(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
 # ------------------------------------------------------------------ chain
 
 def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
-                     device="cpu") -> Callable[[torch.Generator, torch.Tensor], torch.Tensor]:
-    """Returns ``augment(gen, u8_batch) -> float32 batch``.
+                     device="cpu") -> Callable[..., torch.Tensor]:
+    """Returns ``augment(gen, u8_batch, global_batch=None, offset=0) ->
+    float32 batch``.
 
     ``u8_batch``: (B, inference_res, inference_res, C) uint8 on
     ``device``; ``gen`` a ``torch.Generator`` on the same device. Output:
     (B, C, train_res, train_res) float32, normalised, ``channels_last``.
+
+    ``global_batch``: ``u8_batch`` is rows ``offset ... offset + B - 1``
+    of a batch of ``global_batch`` (one rank's shard in
+    ``parallel/data_parallel.py``). Every draw is made for the whole batch
+    and cut to these rows, so each row comes out as it would from the
+    whole batch's call with the same generator.
     """
     device = torch.device(device)
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device).reshape(1, channels, 1, 1)
@@ -225,29 +232,35 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
     R = cfg.inference_resolution
     Rt = cfg.train_resolution
 
-    def augment(gen: torch.Generator, batch_u8: torch.Tensor) -> torch.Tensor:
+    def augment(gen: torch.Generator, batch_u8: torch.Tensor, global_batch=None,
+                offset: int = 0) -> torch.Tensor:
         B = batch_u8.shape[0]
+        Bd = B if global_batch is None else global_batch  # the draws' batch
         dev = batch_u8.device
+
+        def mine(t: torch.Tensor) -> torch.Tensor:
+            return t if Bd == B else t[offset:offset + B]
+
         p = cfg.individual_prob
         # the block gate comes first: the JAX chain draws the flip's block
         # gate from the same key as the block's, so the flip is gated by it
-        block_on = _gate(gen, cfg.overall_prob, B)
+        block_on = mine(_gate(gen, cfg.overall_prob, Bd))
         # vertical flip, hoisted to the uint8 input (exactly distribution-
         # preserving; see the JAX chain's note)
-        flip_m = _gate(gen, p, B) & block_on
+        flip_m = mine(_gate(gen, p, Bd)) & block_on
         batch_u8 = torch.where(flip_m[:, None, None, None], batch_u8.flip(1), batch_u8)
         x = div(batch_u8.permute(0, 3, 1, 2).float(), 255.0)
 
         # 1. RandomAffine: the two-pass shear warp (K1) when the config's
         # matrix ranges are well-conditioned, else the bilinear gather (K2)
         if cfg.rotation or cfg.translate or cfg.scale or cfg.shear:
-            mats = _affine_mats(gen, cfg, B)
+            mats = mine(_affine_mats(gen, cfg, Bd))
             safe = I.twopass_safe(cfg.rotation, cfg.shear, cfg.scale)
             x = I.warp_affine(x, mats, twopass=safe, channels_first=True)
 
         # 2. RandomCrop(train_resolution) after the host-side Resize
         if Rt < R:
-            off = _randint(gen, (B, 2), 0, R - Rt + 1)
+            off = mine(_randint(gen, (Bd, 2), 0, R - Rt + 1))
             ar = torch.arange(Rt, device=dev)
             C = x.shape[1]
             rows = (off[:, 0, None] + ar)[:, None, :, None].expand(B, C, Rt, R)
@@ -262,18 +275,18 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
         # 4. the gated albumentations block
         def gated(fn):
             nonlocal x
-            m = _gate(gen, p, B) & block_on
+            m = mine(_gate(gen, p, Bd)) & block_on
             x = _blend(m, fn(), x)
 
         if cfg.randomgamma:
             def gamma_fn():
-                g = _uniform(gen, (B, 1, 1, 1), 0.8, 1.2)
+                g = mine(_uniform(gen, (Bd, 1, 1, 1), 0.8, 1.2))
                 return torch.pow(x.clamp(min=1e-6), g)
             gated(gamma_fn)
 
         if cfg.randombrightness:
             def bright_fn():
-                f = _uniform(gen, (B, 1, 1, 1), -0.2, 0.2)
+                f = mine(_uniform(gen, (Bd, 1, 1, 1), -0.2, 0.2))
                 return (x + f).clamp(0.0, 1.0)
             gated(bright_fn)
 
@@ -297,14 +310,15 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
             dy = torch.zeros((B, Rt, Rt), dtype=torch.float32, device=dev)
             dx = torch.zeros((B, Rt, Rt), dtype=torch.float32, device=dev)
             for kind, coarse, amp_max in fields:
-                m = (_gate(gen, p, B) & block_on).float()
+                m = (mine(_gate(gen, p, Bd)) & block_on).float()
                 if kind == "coarse":
-                    amp = _uniform(gen, (B,), 0.0, amp_max) * m
-                    fy, fx = _coarse_field(gen, B, Rt, Rt, coarse, amp)
+                    amp = mine(_uniform(gen, (Bd,), 0.0, amp_max)) * m
+                    f = mine(_uniform(gen, (Bd, 2, coarse, coarse), -1.0, 1.0))
+                    fy, fx = _coarse_field_from(f, Rt, Rt, amp)
                     dy, dx = dy + fy, dx + fx
                 else:
                     # barrel/pincushion: r' = r (1 + k r^2), k ~ U(-.05, .05)
-                    kk = _uniform(gen, (B, 1, 1), -0.05, 0.05) * m[:, None, None]
+                    kk = mine(_uniform(gen, (Bd, 1, 1), -0.05, 0.05)) * m[:, None, None]
                     cy = cx = (Rt - 1) / 2.0
                     rr, cc = I.pixel_grid(Rt, Rt, dev)
                     ys, xs = rr - cy, cc - cx
@@ -320,7 +334,8 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
                 C = x.shape[1]
                 cells = x[:, :, : g * cell, : g * cell].reshape(B, C, g, cell, g, cell)
                 cells = cells.permute(0, 2, 4, 1, 3, 5).reshape(B, g * g, C, cell, cell)
-                perm = torch.argsort(torch.rand((B, g * g), generator=gen, device=dev), dim=1)
+                perm = torch.argsort(mine(torch.rand((Bd, g * g), generator=gen, device=dev)),
+                                     dim=1)
                 cells = cells[torch.arange(B, device=dev)[:, None], perm]
                 out = cells.reshape(B, g, g, C, cell, cell).permute(0, 3, 1, 4, 2, 5)
                 out = out.reshape(B, C, g * cell, g * cell)
@@ -331,7 +346,7 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
 
         if cfg.hsv and channels == 3:
             def hsv_fn():
-                sh = _uniform(gen, (B, 3), -1.0, 1.0) * torch.tensor(
+                sh = mine(_uniform(gen, (Bd, 3), -1.0, 1.0)) * torch.tensor(
                     [20 / 255.0, 30 / 255.0, 20 / 255.0], device=dev)
                 h, s, v = _hsv_impl(x, axis=1).unbind(1)
                 hsv = torch.stack(
@@ -349,8 +364,8 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
                 mask = torch.ones((B, 1, Rt, Rt), dtype=torch.float32, device=dev)
                 rr, cc = I.pixel_grid(Rt, Rt, dev)
                 for _ in range(5):  # 5 holes up to 80x80 (ref dataloader.py:180)
-                    c = _randint(gen, (B, 2), 0, Rt).float()
-                    wh = _randint(gen, (B, 2), 1, min(80, Rt) + 1).float()
+                    c = mine(_randint(gen, (Bd, 2), 0, Rt)).float()
+                    wh = mine(_randint(gen, (Bd, 2), 1, min(80, Rt) + 1)).float()
                     inside = ((rr >= c[:, 0, None, None]) & (rr < (c[:, 0] + wh[:, 0])[:, None, None])
                               & (cc >= c[:, 1, None, None])
                               & (cc < (c[:, 1] + wh[:, 1])[:, None, None]))
@@ -361,8 +376,8 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
         if cfg.shadow:
             def shadow_fn():
                 # darken a random vertical band (simplified RandomShadow)
-                a = _randint(gen, (B, 1, 1, 1), 0, Rt)
-                w = _randint(gen, (B, 1, 1, 1), Rt // 8, Rt // 2)
+                a = mine(_randint(gen, (Bd, 1, 1, 1), 0, Rt))
+                w = mine(_randint(gen, (Bd, 1, 1, 1), Rt // 8, Rt // 2))
                 xs = torch.arange(Rt, device=dev).reshape(1, 1, 1, Rt)
                 band = (xs >= a) & (xs < a + w)
                 return torch.where(band, x * 0.5, x)
@@ -370,14 +385,14 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
 
         if cfg.fog:
             def fog_fn():
-                f = _uniform(gen, (B, 1, 1, 1), 0.1, 0.45)
+                f = mine(_uniform(gen, (Bd, 1, 1, 1), 0.1, 0.45))
                 return I.box_blur(x * (1 - f) + f, 3, channels_first=True)
             gated(fog_fn)
 
         if cfg.sun_flare:
             def flare_fn():
-                c = _uniform(gen, (B, 2), 0.0, float(Rt))
-                rad = _uniform(gen, (B,), Rt / 8, Rt / 3)
+                c = mine(_uniform(gen, (Bd, 2), 0.0, float(Rt)))
+                rad = mine(_uniform(gen, (Bd,), Rt / 8, Rt / 3))
                 rr, cc = I.pixel_grid(Rt, Rt, dev)
                 d2 = (rr[None] - c[:, 0, None, None]) ** 2 + (cc[None] - c[:, 1, None, None]) ** 2
                 glow = torch.exp(-d2 / (2 * (rad[:, None, None] / 2) ** 2))
@@ -400,8 +415,10 @@ def build_augment_fn(cfg: AugmentConfig, mean, std, channels: int,
 
         # 5. GaussNoise(var_limit=noise_std^2, p=noise_prob)
         if cfg.noise_std > 0 and cfg.noise_prob > 0:
-            m = _gate(gen, cfg.noise_prob, B)
-            noise = torch.randn(x.shape, generator=gen, device=dev) * cfg.noise_std
+            m = mine(_gate(gen, cfg.noise_prob, Bd))
+            # the dense field is drawn for the whole batch too
+            noise = mine(torch.randn((Bd, *x.shape[1:]), generator=gen, device=dev))
+            noise = noise * cfg.noise_std
             x = _blend(m, (x + noise).clamp(0.0, 1.0), x)
 
         # 6. Normalize (images already in [0, 1] = ToFloat(255))

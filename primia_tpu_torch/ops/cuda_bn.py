@@ -420,19 +420,25 @@ class _BnTrain(torch.autograd.Function):
     versions."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, running_mean, running_var, momentum):
+    def forward(ctx, x, gamma, beta, eps, running_mean, running_var, momentum, ranks):
         n = x.numel() // x.shape[1]
         if x.device.type == "cuda":
             x = _channels_last(x, "bn_sums")
             _check_params(x, x.shape[1], gamma, beta, running_mean, running_var)
-            stats = _finalize(_sums("bn_sums", x), gamma, beta, n, eps, running_mean,
-                              running_var, momentum)
+            partial = _sums("bn_sums", x)
+        else:
+            partial = channel_partials(x)
+        if ranks is not None:
+            partial, n = ranks.sum_(partial.sum(0, keepdim=True)), n * ranks.size
+        if x.device.type == "cuda":
+            stats = _finalize(partial, gamma, beta, n, eps, running_mean, running_var, momentum)
             y = _apply(x, _row(stats, 5), _row(stats, 6))
         else:
-            stats = bn_finalize(channel_partials(x), gamma, beta, n, eps, running_mean,
-                                running_var, momentum)
+            stats = bn_finalize(partial, gamma, beta, n, eps, running_mean, running_var,
+                                momentum)
             y = bn_apply(x, stats[5], stats[6])
         mean, var = stats[2], stats[3]
+        ctx.ranks = ranks
         ctx.save_for_backward(x, gamma, stats)
         ctx.mark_non_differentiable(mean, var)
         # mean and var get no gradient: no zeros are made for them
@@ -442,7 +448,7 @@ class _BnTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         if gy is None:  # y took no part in what is differentiated
-            return None, None, None, None, None, None, None
+            return (None,) * 8
         x, gamma, stats = ctx.saved_tensors
         n = x.numel() // x.shape[1]
         if x.device.type == "cuda":
@@ -450,24 +456,42 @@ class _BnTrain(torch.autograd.Function):
                 raise ValueError(f"gradient {tuple(gy.shape)} on {gy.device} for x "
                                  f"{tuple(x.shape)} on {x.device}")
             gy = _channels_last(gy, "bn_grad_sums")
-            coef = _grad_finalize(_sums("bn_grad_sums", gy, x), gamma.data_ptr(),
-                                  _row(stats, 2), _row(stats, 4), n)
+            partial = _sums("bn_grad_sums", gy, x)
+        else:
+            partial = grad_channel_partials(gy, x)
+        ranks = ctx.ranks
+        if ranks is not None:
+            # this rank's gamma and beta gradients; dx's coefficients from
+            # the sums over every rank
+            own = partial.sum(0)
+            dgamma = torch.addcmul(own[1], stats[2], own[0], value=-1.0).mul_(stats[4])
+            partial, n = ranks.sum_(own[None].clone()), n * ranks.size
+        if x.device.type == "cuda":
+            coef = _grad_finalize(partial, gamma.data_ptr(), _row(stats, 2), _row(stats, 4), n)
             dx = _dx(gy, x, _row(coef, 3), _row(coef, 4), _row(coef, 5))
         else:
-            coef = bn_grad_finalize(grad_channel_partials(gy, x), gamma, stats[2], stats[4], n)
+            coef = bn_grad_finalize(partial, gamma, stats[2], stats[4], n)
             dx = bn_dx(gy, x, coef[3], coef[4], coef[5])
-        return dx, coef[2].to(gamma.dtype), coef[0].to(gamma.dtype), None, None, None, None
+        if ranks is not None:
+            return dx, dgamma.to(gamma.dtype), own[0].to(gamma.dtype), None, None, None, None, None
+        return dx, coef[2].to(gamma.dtype), coef[0].to(gamma.dtype), None, None, None, None, None
 
 
 def bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
              running_mean: Optional[torch.Tensor] = None,
              running_var: Optional[torch.Tensor] = None,
-             momentum: float = 0.1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             momentum: float = 0.1, ranks=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode batch norm of a (N, C, H, W) bfloat16 ``x``; returns
     (y, mean, biased var), y in x's dtype, mean and var float32 (not
     differentiated). ``pallas_bn.py:bn_train``, in three launches a
     direction on the card: forward the sums, :func:`bn_finalize` and
     :func:`bn_apply`; backward the gradient sums, :func:`bn_grad_finalize`
     and :func:`bn_dx`. Given the running statistics, the finalize updates
-    them in place (momentum ``momentum``, the unbiased variance)."""
-    return _BnTrain.apply(x, gamma, beta, eps, running_mean, running_var, momentum)
+    them in place (momentum ``momentum``, the unbiased variance).
+
+    ``ranks`` (``parallel/data_parallel.py``): the ranks that share the
+    batch, each holding an equal number of its rows. Each direction's sums
+    are then summed over them (``ranks.sum_``) between K8's launch and the
+    finalize, so the statistics and dx are the whole batch's; gamma's and
+    beta's gradients stay this rank's own."""
+    return _BnTrain.apply(x, gamma, beta, eps, running_mean, running_var, momentum, ranks)

@@ -1,5 +1,6 @@
-"""Parallelism layer: federated simulation over N node replicas on one
-card (port of ``primia_tpu/parallel``; the data-parallel and multi-host
-modules are not ported yet)."""
+"""Parallelism layer (port of ``primia_tpu/parallel``): federated
+simulation over N node replicas on one card, and runs over ranks of
+``torch.distributed`` (``multihost``, ``data_parallel``, the rank
+launcher ``launch``)."""
 
 from primia_tpu_torch.parallel.federated import main_federated, setup_federated  # noqa: F401

@@ -5,7 +5,8 @@ Port of ``primia_tpu/train/losses.py`` (reference ``torchlib/utils.py:
 mixes with a random partner under one shared λ, so the batch keeps its
 size. Its draws (``mixup``) are kept apart from its math
 (``mixup_with``), so tests can hand both packages the same λ and
-permutation.
+permutation; ``add_gaussian_noise`` and ``add_gaussian_noise_with`` are
+split the same way.
 """
 
 from __future__ import annotations
@@ -70,15 +71,43 @@ def mixup(gen: torch.Generator, x: torch.Tensor, y_oh: torch.Tensor,
     """Permutation MixUp (reference ``MixUp``): with probability ``prob``
     per batch, λ ~ U(0, 1) (or the fixed ``lam``) and a random partner for
     every sample; otherwise λ = 1. Draws stay on the device."""
-    dev = x.device
+    lam_t, perm = mixup_draws(gen, x.shape[0], lam, prob)
+    return mixup_with(x, y_oh, lam_t, perm)
+
+
+def mixup_draws(gen: torch.Generator, n: int, lam: Optional[float] = None,
+                prob: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mixup`'s draws for a batch of ``n``: λ (1 when the batch is
+    not mixed) and the partners' permutation, on ``gen``'s device."""
+    dev = gen.device
     apply = torch.rand((), generator=gen, device=dev) < prob
     if lam is None:
         lam_t = torch.rand((), generator=gen, device=dev)
     else:
         lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
     lam_t = torch.where(apply, lam_t, torch.ones((), device=dev))
-    perm = torch.randperm(x.shape[0], generator=gen, device=dev)
-    return mixup_with(x, y_oh, lam_t, perm)
+    return lam_t, torch.randperm(n, generator=gen, device=dev)
+
+
+def add_gaussian_noise_with(x: torch.Tensor, noise: torch.Tensor, gate: Optional[torch.Tensor],
+                            mean: float = 0.0, std: float = 1.0) -> torch.Tensor:
+    """``x + (noise * std + mean)`` where ``gate`` (a scalar bool) holds, or
+    everywhere when it is None; ``noise`` is N(0, 1) of x's shape."""
+    out = x + (noise * std + mean)
+    return out if gate is None else torch.where(gate, out, x)
+
+
+def add_gaussian_noise(gen: torch.Generator, x: torch.Tensor, mean: float = 0.0,
+                       std: float = 1.0, p: Optional[float] = None) -> torch.Tensor:
+    """Reference ``AddGaussianNoise`` (``primia_tpu/train/losses.py:83-90``):
+    ``x + N(mean, std^2)``, applied with probability ``p`` by one Bernoulli
+    draw for the whole tensor (not one an element). Draws stay on
+    ``gen``'s device. Not the augmentation's GaussNoise (gated per sample,
+    clipped) and not K5 (``ops/cuda_kernels.py``)."""
+    dev = x.device
+    gate = None if p is None else torch.rand((), generator=gen, device=dev) < p
+    noise = torch.randn(x.shape, generator=gen, device=dev, dtype=torch.float32)
+    return add_gaussian_noise_with(x, noise, gate, mean, std)
 
 
 def calc_class_weights(labels: np.ndarray, num_classes: int) -> np.ndarray:

@@ -143,6 +143,39 @@ def test_mixup_draws_keep_the_batch():
     assert torch.equal(same_x, x) and torch.equal(same_y, y)
 
 
+@pytest.mark.parametrize("p", [None, 0.5])
+def test_add_gaussian_noise_given_its_draws_is_exact(p):
+    """JAX's ``add_gaussian_noise`` against ``add_gaussian_noise_with`` on
+    the JAX draws (the gate's Bernoulli and the normal field of its key's
+    split), bit for bit, for keys whose gate falls either way."""
+    x = np.random.default_rng(5).normal(0, 1, (3, 2, 5, 4)).astype(np.float32)
+    for seed in range(6):
+        key = jax.random.PRNGKey(seed)
+        ref = np.asarray(jax_losses.add_gaussian_noise(key, jnp.asarray(x), mean=0.2, std=0.3,
+                                                       p=p))
+        kc, kn = jax.random.split(key)
+        noise = torch.from_numpy(np.asarray(jax.random.normal(kn, x.shape)))
+        gate = None if p is None else torch.tensor(bool(jax.random.bernoulli(kc, p)))
+        got = losses.add_gaussian_noise_with(torch.from_numpy(x), noise, gate, 0.2, 0.3)
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_add_gaussian_noise_gates_the_whole_tensor():
+    """One Bernoulli for the tensor, not one an element: each call leaves
+    every element or none; p = 0 and p = 1 always leave and always add."""
+    x = torch.rand((4, 3, 8, 8))
+    kept = set()
+    for seed in range(16):
+        y = losses.add_gaussian_noise(torch.Generator().manual_seed(seed), x, 0.0, 0.5, p=0.5)
+        same = (y == x)
+        assert bool(same.all()) or not bool(same.any())
+        kept.add(bool(same.all()))
+    assert kept == {True, False}
+    assert torch.equal(losses.add_gaussian_noise(torch.Generator(), x, p=0.0), x)
+    y = losses.add_gaussian_noise(torch.Generator().manual_seed(1), x, 1.0, 0.1, p=1.0)
+    assert abs(float((y - x).mean()) - 1.0) < 0.02
+
+
 def test_class_weights_match_jax():
     labels = np.array([0, 0, 1, 2, 2, 2], np.int32)
     np.testing.assert_array_equal(losses.calc_class_weights(labels, 4),
