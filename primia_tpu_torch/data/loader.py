@@ -15,6 +15,8 @@ from typing import Iterable, Iterator, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from primia_tpu_torch.utils import count_h2d, span
+
 Images = Union[np.ndarray, torch.Tensor]
 
 
@@ -92,7 +94,10 @@ def calc_mean_std(images_u8: np.ndarray,
 
 class BatchLoader:
     """Shuffling fixed-shape batch iterator over a materialised array or
-    a device-resident tensor (batches are then gathered on the device)."""
+    a device-resident tensor (batches are then gathered on the device).
+    Under a profiler each batch's work is a ``loader.batch`` span
+    (``utils.span``), and the upload of its indices to the device counts
+    in ``h2d_copies``."""
 
     def __init__(
         self,
@@ -129,20 +134,24 @@ class BatchLoader:
         B = self.batch_size
         on_device = isinstance(self.images, torch.Tensor)
         for b in range(len(self)):
-            idx = order[b * B : (b + 1) * B]
-            if on_device:
-                imgs = self.images[torch.from_numpy(idx).to(self.images.device)]
-            else:
-                imgs = self.images[idx]
-            labs = self.labels[idx] if self.labels is not None else None
-            mask = np.ones(len(idx), np.float32)
-            if len(idx) < B and self.pad_final:
-                pad = B - len(idx)
+            # the span closes before the yield: the consumer's work is not the loader's
+            with span("loader.batch", self.images.device if on_device else None):
+                idx = order[b * B : (b + 1) * B]
                 if on_device:
-                    imgs = torch.cat([imgs, imgs.new_zeros((pad, *imgs.shape[1:]))])
+                    count_h2d()
+                    imgs = self.images[torch.from_numpy(idx).to(self.images.device)]
                 else:
-                    imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]), imgs.dtype)])
-                if labs is not None:
-                    labs = np.concatenate([labs, np.zeros(pad, labs.dtype)])
-                mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+                    imgs = self.images[idx]
+                labs = self.labels[idx] if self.labels is not None else None
+                mask = np.ones(len(idx), np.float32)
+                if len(idx) < B and self.pad_final:
+                    pad = B - len(idx)
+                    if on_device:
+                        imgs = torch.cat([imgs, imgs.new_zeros((pad, *imgs.shape[1:]))])
+                    else:
+                        imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]),
+                                                              imgs.dtype)])
+                    if labs is not None:
+                        labs = np.concatenate([labs, np.zeros(pad, labs.dtype)])
+                    mask = np.concatenate([mask, np.zeros(pad, np.float32)])
             yield Batch(imgs, labs, mask)

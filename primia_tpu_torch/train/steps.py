@@ -24,6 +24,7 @@ from primia_tpu_torch.ops.augment import AugmentConfig, build_augment_fn, normal
 from primia_tpu_torch.ops.image import clahe
 from primia_tpu_torch.ops.numerics import div
 from primia_tpu_torch.train import losses
+from primia_tpu_torch.utils import count_h2d, span
 
 
 def resolve_compute_dtype(args, device) -> torch.dtype:
@@ -51,10 +52,14 @@ def _full_f32(device: torch.device) -> None:
 
 def _on(device: torch.device, a, dtype=None) -> Optional[torch.Tensor]:
     """A numpy array or tensor on ``device`` (numpy is copied: a cached
-    dataset is a read-only memory map)."""
+    dataset is a read-only memory map). A host array copied onto the
+    device counts in ``h2d_copies`` while a profiler runs."""
     if a is None:
         return None
-    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    host = not isinstance(a, torch.Tensor)
+    t = torch.from_numpy(np.array(a)) if host else a
+    if host or (t.device.type == "cpu" and device.type != "cpu"):
+        count_h2d()
     return t.to(device=device, dtype=dtype)
 
 
@@ -85,6 +90,11 @@ def build_train_step(model: torch.nn.Module, optimizer, args, mean, std,
     device tensor (no host sync). ``mask`` zeroes padded rows' loss
     (padded rows do enter the BN batch statistics).
 
+    Under a profiler, ``utils.span`` names the step (``train.step``) and
+    its phases: ``train.augment`` (the augmentation with the label and
+    mask copies), ``train.mixup``, ``train.forward`` (with the loss),
+    ``train.backward`` and ``train.optimizer``.
+
     Precision: the compute dtype (:func:`resolve_compute_dtype`) is
     bfloat16 on CUDA by default: convolutions and the fc run in bfloat16
     under autocast, while the BN statistics, the loss, the master
@@ -103,24 +113,31 @@ def build_train_step(model: torch.nn.Module, optimizer, args, mean, std,
     _full_f32(device)
 
     def step(gen: torch.Generator, images_u8, labels, mask, lr: float) -> torch.Tensor:
-        model.train()
-        x = augment(gen, _on(device, images_u8))
-        labels = _on(device, labels, torch.long)
-        mask = _on(device, mask, torch.float32)
-        y_oh = losses.to_one_hot(labels, nc)
-        if args.mixup:
-            x, y_oh = losses.mixup(gen, x, y_oh, lam=args.mixup_lambda, prob=args.mixup_prob)
-        with torch.autocast(device.type, dtype=torch.bfloat16,
-                            enabled=cdtype == torch.bfloat16):
-            logits = model(x)
-        logits = logits.float()
-        if onehot:
-            loss = losses.cross_entropy_one_hot(logits, y_oh, weight=w, sample_mask=mask)
-        else:
-            loss = losses.cross_entropy(logits, labels, weight=w, sample_mask=mask)
-        grads = torch.autograd.grad(loss, optimizer.params)
-        optimizer.update(grads, lr)
-        return loss.detach()
+        with span("train.step", device):
+            model.train()
+            with span("train.augment", device):
+                x = augment(gen, _on(device, images_u8))
+                labels = _on(device, labels, torch.long)
+                mask = _on(device, mask, torch.float32)
+            with span("train.mixup", device):
+                y_oh = losses.to_one_hot(labels, nc)
+                if args.mixup:
+                    x, y_oh = losses.mixup(gen, x, y_oh, lam=args.mixup_lambda,
+                                           prob=args.mixup_prob)
+            with span("train.forward", device):
+                with torch.autocast(device.type, dtype=torch.bfloat16,
+                                    enabled=cdtype == torch.bfloat16):
+                    logits = model(x)
+                logits = logits.float()
+                if onehot:
+                    loss = losses.cross_entropy_one_hot(logits, y_oh, weight=w, sample_mask=mask)
+                else:
+                    loss = losses.cross_entropy(logits, labels, weight=w, sample_mask=mask)
+            with span("train.backward", device):
+                grads = torch.autograd.grad(loss, optimizer.params)
+            with span("train.optimizer", device):
+                optimizer.update(grads, lr)
+            return loss.detach()
 
     return step
 

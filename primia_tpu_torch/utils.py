@@ -11,6 +11,11 @@ are ``LoggingTensor`` (logs each op as it forwards down the tensor chain,
 * :func:`profile` wraps ``torch.profiler`` into a context manager that
   records the CUDA activity and the ops' input shapes and writes a
   Chrome/Perfetto trace, which ``profiler.py`` attributes op by op.
+* :func:`span` names a phase of the program (``train.step``,
+  ``loader.batch``, ...) in that trace, with its host time, its stream
+  time on a CUDA device and the host :data:`counters` at its close, all
+  handed to :func:`span_closed`. Without a running profiler it is a
+  shared no-op.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class LoggingEngine:
@@ -55,24 +63,17 @@ TRACE_FILE = "trace.json"
 
 
 @contextlib.contextmanager
-def profile(logdir: str = "build/primia_trace", host_only: bool = False):
+def profile(logdir: str = "build/primia_trace"):
     """Capture a trace viewable in Perfetto or ``chrome://tracing``:
     ``torch.profiler`` over the block, the CPU's ops with their input
     shapes and, on a host with a card, the CUDA kernels and copies; the
     card is synchronised before the trace closes. Yields the profiler
     (its ``key_averages()`` stay readable) and writes
-    ``<logdir>/trace.json``. ``host_only`` prints the block's wall time
-    instead and yields None.
+    ``<logdir>/trace.json``.
 
     >>> with profile("build/trace"):
     ...     step(...)  # traced
     """
-    if host_only:
-        t0 = time.perf_counter()
-        yield None
-        print(f"[profile] wall: {time.perf_counter() - t0:.3f}s")
-        return
-    import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     cuda = torch.cuda.is_available()
@@ -85,3 +86,81 @@ def profile(logdir: str = "build/primia_trace", host_only: bool = False):
     path = os.path.join(logdir, TRACE_FILE)
     prof.export_chrome_trace(path)
     print(f"[profile] trace written to {path}")
+
+
+# ---------------------------------------------------------------- counters
+
+# host counters, counted only while a profiler runs: ``h2d_copies``, the
+# host arrays copied onto a step's device by ``train/steps.py:_on`` and
+# ``data/loader.py:BatchLoader``'s index upload (:func:`count_h2d`)
+counters: Dict[str, int] = {"h2d_copies": 0}
+
+
+def count_h2d() -> None:
+    """Counts one host array copied onto a step's device, while a profiler
+    runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        counters["h2d_copies"] += 1
+
+
+# ------------------------------------------------------------------- spans
+
+def span_closed(name: str, host_ns: int, start_event, end_event,
+                counters: Dict[str, int]) -> None:
+    """Called as each :func:`span` closes under a profiler: its name, its
+    host nanoseconds, its CUDA timing events on its device's current
+    stream (None for a span off CUDA; ``start_event.elapsed_time(
+    end_event)`` once the stream has passed them) and a copy of the host
+    counters at the close. Does nothing; a reader of the spans replaces
+    this module attribute, which :class:`_Span` looks up at each call
+    (bind it by ``utils.span_closed``, never by ``from ... import``)."""
+
+
+class _Span:
+    __slots__ = ("name", "_cuda", "_range", "_event", "_t0")
+
+    def __init__(self, name: str, cuda):
+        self.name, self._cuda = name, cuda
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._event = self._record()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        host_ns = time.perf_counter_ns() - self._t0
+        end = self._record()
+        self._range.__exit__(*exc)
+        span_closed(self.name, host_ns, self._event, end, dict(counters))
+        return False
+
+    def _record(self):
+        if self._cuda is None:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self._cuda))
+        return event
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, device=None):
+    """A context naming a phase of the program. While a torch profiler
+    runs, it opens ``torch.profiler.record_function(name)`` (a range on
+    the trace's clock, which Kineto aligns with the device's events),
+    times its host nanoseconds and, where ``device`` (the device the
+    phase's work runs on) is a CUDA device, records a timing event on its
+    current stream at each end, then hands them with the counters to
+    :func:`span_closed`. Otherwise it is a shared no-op context: one
+    check of the profiler's flag.
+
+    >>> with span("train.forward", device):
+    ...     logits = model(x)
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    device = None if device is None else torch.device(device)
+    return _Span(name, device if device is not None and device.type == "cuda" else None)

@@ -193,13 +193,6 @@ def test_trace_parser_reads_a_cpu_trace_of_utils_profile(tmp_path):
     assert r["conv_tflops"] * 1e12 == pytest.approx(2 * 3 * fwd)
 
 
-def test_profile_host_only_prints_the_wall_time(capsys):
-    with utils.profile(host_only=True) as prof:
-        pass
-    assert prof is None
-    assert capsys.readouterr().out.startswith("[profile] wall: ")
-
-
 # --------------------------------------------------------- LoggingEngine
 
 def test_logging_engine_records_the_jax_op_sequence():
