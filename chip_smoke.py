@@ -22,8 +22,19 @@ Phases, each reported on its own line; any failure exits nonzero:
                   written once, 5 bytes a pixel at 3.35 TB/s, or the f32
                   operations at 67 TFLOP/s, whichever is larger); then the
                   cluster shape, shared memory a CTA and the clusters the
-                  card holds at once, and the kernel's registers, shared
+                  card holds at once, and the kernels' registers, shared
                   memory and spills (cuobjdump -res-usage).
+3b. clahe_lab     the 3-channel CLAHE as one kernel (RGB -> LAB, K3's
+                  LUTs and apply on L, back to RGB) against the plain
+                  composition on the card, bit for bit, at the train steps'
+                  (200 and 64 contiguous NCHW images of 224x224), the
+                  serving batch and a ragged 3 x 60 x 60 in the predict
+                  step's layout (NHWC seen as NCHW), and on the low-entropy
+                  planes as 200 grey images; one launch a call and no K3,
+                  the input's layout, the same bits on a second call; the
+                  times as above beside the bound (24 bytes a pixel), the
+                  plain composition's device operations and K3's time on
+                  the same planes; its cluster plan.
 4. tent_rows      K1 against its plain version, bit for bit, at the
                   canonical train shape (200 images x 3 channels of 224x224)
                   for each of the train step's four passes (the affine warp's
@@ -382,7 +393,8 @@ Phases, each reported on its own line; any failure exits nonzero:
                   build/chip_smoke/figures.
 21. kernels       one JSON line with each kernel's error, times, bound and
                   launches, counted on the path that runs it (the train CLI
-                  for K1 and CLAHE, the PRIMIA_WARP_TWOPASS=0 steps for K2,
+                  for K1 and the 3-channel CLAHE, SimpleConv's 1-channel
+                  train CLI for K3, the PRIMIA_WARP_TWOPASS=0 steps for K2,
                   the encrypted CLI for K4, the switched train CLI for K7 and
                   K8, the noise phase for K5; every path's counts beside
                   them, K1 and CLAHE also on the federated and hpo paths, CLAHE on the
@@ -436,16 +448,24 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 KERNELS = {
-    # K3: both TPU kernels (the LUTs, their apply) and the / 255 after them
+    # K3: both TPU kernels (the LUTs, their apply) and the / 255 after them.
     # "path" is the path whose count the kernels line reports; "also" names
-    # the other paths that must launch the kernel (the federated nodes' steps)
-    "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "train",
-              "also": ("federated", "encrypt_snn", "vgg_serve", "vgg_train", "vgg_encrypt",
-                       "vgg_encrypt_snn", "conv_serve", "conv_train", "conv_encrypt",
-                       "conv_encrypt_snn", "grid_serve", "grid_federated", "hpo",
-                       "data_parallel", "data_parallel_switched", "party"),
+    # the other paths that must launch the kernel (the federated nodes' steps).
+    # 3-channel images take clahe_lab; K3 serves 1-channel ones (SimpleConv's
+    # INI: pretrained = no)
+    "clahe": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148", "path": "conv_train",
+              "also": ("conv_serve", "conv_encrypt", "conv_encrypt_snn"),
               "kernel": ("clahe_kernel",),
               "source": "primia_tpu_torch/csrc/clahe.cu"},
+    # the 3-channel CLAHE: K3's two TPU kernels and the RGB -> LAB -> RGB
+    # conversion that XLA fuses around them (image.py:clahe)
+    "clahe_lab": {"replaces": "primia_tpu/ops/pallas_clahe.py:83,148 + primia_tpu/ops/image.py:617",
+                  "path": "train",
+                  "also": ("federated", "encrypt_snn", "vgg_serve", "vgg_train", "vgg_encrypt",
+                           "vgg_encrypt_snn", "grid_serve", "grid_federated", "hpo",
+                           "data_parallel", "data_parallel_switched", "party"),
+                  "kernel": ("clahe_lab_kernel",),
+                  "source": "primia_tpu_torch/csrc/clahe.cu"},
     "tent_rows": {"replaces": "primia_tpu/ops/pallas_tent.py:191", "path": "train",
                   "also": ("federated", "dp", "dp_federated", "vgg_train", "conv_train",
                            "mnist", "conv_dp", "conv_dp_federated", "grid_federated", "hpo",
@@ -579,16 +599,22 @@ def profile(torch, fn, iters):
     return trace(torch, fn, iters).key_averages()
 
 
+def device_rows(avgs):
+    """The device-side rows of profiler averages (kernels, copies, sets),
+    without the device ranges that a profiler records beside them for
+    ``record_function`` spans (the train path's ``utils.span``s)."""
+    from torch.autograd import DeviceType
+
+    spans = {e.key for e in avgs if getattr(e, "is_user_annotation", False)}
+    return [e for e in avgs if e.device_type == DeviceType.CUDA and e.key not in spans]
+
+
 def device_ms_by_category(avgs, iters):
     """Device milliseconds per call of the profiled function, summed over
     the device-side rows (kernels and copies) by category."""
-    from torch.autograd import DeviceType
-
     cats = {"warp_kernels": 0.0, "clahe_kernels": 0.0, "wgrad_kernel": 0.0, "bn_kernels": 0.0,
             "convolution": 0.0, "memcpy": 0.0, "other": 0.0}
-    for e in avgs:
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_rows(avgs):
         k = e.key
         if "tent_" in k:
             cat = "warp_kernels"
@@ -643,6 +669,12 @@ def idle_launches(**nonzero):
     return {**{k: 0 for k in read_launches()}, **nonzero}
 
 
+def clahe_counter(n_channels):
+    """The launch counter of CLAHE on images of ``n_channels``: the
+    3-channel kernel, or K3 plane by plane."""
+    return "clahe_lab" if n_channels == 3 else "clahe"
+
+
 def phase_build():
     from primia_tpu_torch.ops import _build
 
@@ -669,13 +701,15 @@ def low_entropy_planes(torch, n, H, W, g):
 
 
 def phase_kernels(torch, seed):
-    """Phases 2-3: K3 against its plain composite on the card, bit for bit.
-    Returns its record, with the times at the train step's 200 planes."""
+    """Phases 2-3: K3 against its plain composite on the card, bit for bit,
+    then clahe_lab against the plain 3-channel composition. Returns both
+    records, with the times at the train step's 200 planes and images."""
     from primia_tpu_torch.ops import cuda_clahe as cc
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rec = {"max_abs_err": 0.0}
+    k3 = {}
     cases = [(f"{n}x{h}x{w}", torch.randint(0, 256, (n, h, w), dtype=torch.uint8, device=dev,
                                             generator=g))
              for n, h, w in [(BATCH, RES, RES), (64, RES, RES), (TRAIN_BATCH, RES, RES),
@@ -707,14 +741,78 @@ def phase_kernels(torch, seed):
                          bound(5 * px, 12 * px + 8 * N * T * T * 256), iters=100,
                          plain_iters=20)
         _say_times("clahe", r, case=name, max_abs_err=err, deterministic="yes")
+        k3[name] = r
         if name == f"{TRAIN_BATCH}x{RES}x{RES}":
             rec.update(r)
     for H, W in ((RES, RES), (60, 60)):
         plan = cc.cluster_plan(H, W)
         check(plan["max_active_clusters"] > 0, f"clahe: no cluster fits at {H}x{W}: {plan}")
         say("clahe", plane=f"{H}x{W}", plan=json.dumps(plan))
+    rec_lab = phase_clahe_lab(torch, g, low, k3)
     res = resource_usage("clahe")
     say("clahe", resource_usage="not available" if res is None else json.dumps(res))
+    return rec, rec_lab
+
+
+def phase_clahe_lab(torch, g, low, k3):
+    """Phase 3b: clahe_lab, the 3-channel CLAHE in one launch, against the
+    plain composition (RGB -> LAB, K3 on L, back) on the card, bit for bit:
+    at the train steps' batches (200 and 64 contiguous NCHW images), the
+    serving batch and a ragged one as the predict step hands them (NHWC
+    seen as NCHW), and on the low-entropy planes as grey images (three
+    equal channels, as the configurations' X-rays). One launch a call, no
+    K3; the same bits on a second call; the input's layout. Times beside
+    the bound (24 bytes a pixel: three float32 read and written), the plain
+    composition's (and its device operations) and K3's on the same
+    planes."""
+    from primia_tpu_torch.ops import cuda_clahe as cc
+
+    dev = torch.device("cuda")
+    rec = {"max_abs_err": 0.0}
+
+    def rgb(n, h, w, nhwc):
+        x = torch.rand((n, h, w, 3), generator=g, device=dev).permute(0, 3, 1, 2)
+        return x if nhwc else x.contiguous()
+
+    grey = low.float().div(255.0)[:, None].expand(-1, 3, -1, -1).contiguous()
+    cases = [(f"{TRAIN_BATCH}x3x{RES}x{RES}", rgb(TRAIN_BATCH, RES, RES, False)),
+             (f"64x3x{RES}x{RES}", rgb(64, RES, RES, False)),
+             (f"{BATCH}x3x{RES}x{RES}_nhwc", rgb(BATCH, RES, RES, True)),
+             ("3x3x60x60_nhwc", rgb(3, 60, 60, True)),
+             (f"low_entropy_grey_{TRAIN_BATCH}x3x{RES}x{RES}", grey)]
+    for name, x in cases:
+        B, _, H, W = x.shape
+        before = read_launches()
+        out = cc.clahe_rgb(x)
+        torch.cuda.synchronize()
+        after = read_launches()
+        check(after["clahe_lab"] == before["clahe_lab"] + 1 and after["clahe"] == before["clahe"],
+              f"clahe_lab at {name}: one launch a call and no K3, got {before} -> {after}")
+        check(out.stride() == x.stride(), f"clahe_lab at {name}: strides {out.stride()} "
+              f"for an input's {x.stride()}")
+        want = cc.clahe_rgb_plain(x)
+        d = (out - want).abs()
+        err = float(d.max())
+        check(torch.equal(out, want), f"clahe_lab differs from the plain composition at {name}: "
+              f"{int((d > 0).sum())} of {d.numel()} values, up to {err * 255.0} levels")
+        check(torch.equal(cc.clahe_rgb(x), out), f"clahe_lab gives other bits on a second "
+              f"call at {name}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        r = timed_record(torch, "clahe_lab", lambda: cc.clahe_rgb(x),
+                         lambda: cc.clahe_rgb_plain(x), None, bound(24 * B * H * W, 0),
+                         iters=50, plain_iters=10)
+        plain = profile(torch, lambda: cc.clahe_rgb_plain(x), 1)
+        plain_ops = sum(e.count for e in device_rows(plain))
+        k3_ms = k3.get(f"{B}x{H}x{W}", {}).get("ms")
+        _say_times("clahe_lab", r, case=name, max_abs_err=err, deterministic="yes",
+                   plain_device_operations=plain_ops,
+                   k3_ms="none" if k3_ms is None else f"{k3_ms:.6f}")
+        if name == f"{TRAIN_BATCH}x3x{RES}x{RES}":
+            rec.update(r)
+    for H, W in ((RES, RES), (60, 60)):
+        plan = cc.cluster_plan(H, W, lab=True)
+        check(plan["max_active_clusters"] > 0, f"clahe_lab: no cluster fits at {H}x{W}: {plan}")
+        say("clahe_lab", image=f"{H}x{W}", plan=json.dumps(plan))
     return rec
 
 
@@ -1402,13 +1500,9 @@ def encrypt_ms_by_category(avgs, gemm_kernels):
     """Device milliseconds of the profiled window by category, with K4 and
     the int8 limb GEMMs (``gemm_kernels``: the kernels ``aten::_int_mm``
     launched) split out."""
-    from torch.autograd import DeviceType
-
     cats = {"dcf_kernel": 0.0, "int8_gemm": 0.0, "clahe_kernels": 0.0, "memcpy": 0.0,
             "other": 0.0}
-    for e in avgs:
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_rows(avgs):
         k = e.key
         if "dcf_sign" in k:
             cat = "dcf_kernel"
@@ -1526,8 +1620,6 @@ def time_encrypted(torch, np, phase, protocol, enc, imgs, profile_out, tag,
     against the p50, device operations a forward, device ms by category
     (the table of the last batch size goes to ``profile_out`` with
     ``tag``)."""
-    from torch.autograd import DeviceType
-
     for B in batches:
         x = imgs[:B]
         enc(x)  # warm-up
@@ -1549,7 +1641,7 @@ def time_encrypted(torch, np, phase, protocol, enc, imgs, profile_out, tag,
         check(gemm_kernels, f"{phase}: the profile links no kernel to aten::_int_mm")
         cats = encrypt_ms_by_category(avgs, gemm_kernels)
         busy = sum(cats.values())
-        launched = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+        launched = sum(e.count for e in device_rows(avgs))
         idle = f"{1.0 - busy / q[0]:.4f}" if busy > 0 else "not measured"
         say(phase, protocol=protocol, batch=B, batches_timed=len(batch_ms),
             batch_ms_p50=f"{q[0]:.4f}", batch_ms_p75=f"{q[1]:.4f}",
@@ -1573,7 +1665,7 @@ def phase_encrypt(torch, seed, work, profile_out):
     say("encrypt", images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH, protocol="fss",
         weights=case["weights"].relative_to(ROOT))
     results = {tile: check_encrypted(torch, "encrypt", case, "fss",
-                                     {"dcf_sign": SIGNS_PER_FORWARD, "clahe": 1}, tile)
+                                     {"dcf_sign": SIGNS_PER_FORWARD, "clahe_lab": 1}, tile)
                for tile in (None, 2)}
     time_encrypted(torch, np, "encrypt", "fss", results[None][1], case["imgs"], profile_out,
                    ".encrypt")
@@ -1591,7 +1683,7 @@ def phase_encrypt_snn(torch, seed, work, profile_out):
     case = encrypted_case(torch, work, work / "resnet18-canonical.pt", "encrypt_snn_images")
     say("encrypt_snn", images=ENCRYPT_IMAGES, batch=ENCRYPT_BATCH, protocol="snn",
         weights=case["weights"].relative_to(ROOT))
-    launches, enc, _ = check_encrypted(torch, "encrypt_snn", case, "snn", {"clahe": 1})
+    launches, enc, _ = check_encrypted(torch, "encrypt_snn", case, "snn", {"clahe_lab": 1})
     time_encrypted(torch, np, "encrypt_snn", "snn", enc, case["imgs"], profile_out,
                    ".encrypt_snn")
     return launches
@@ -1654,7 +1746,6 @@ def phase_serve(torch, seed, work, profile_out):
     from primia_tpu_torch.data import PathDataset, write_dicom
     from primia_tpu_torch.nn import create_model
     from primia_tpu_torch.nn.jax_params import from_jax_tree
-    from primia_tpu_torch.ops import cuda_clahe as cc
     from primia_tpu_torch.train import checkpoint as ckpt
     from primia_tpu_torch.train.steps import build_predict_step
 
@@ -1693,10 +1784,9 @@ def phase_serve(torch, seed, work, profile_out):
     lines = out.getvalue().splitlines()
     check(json.loads(lines[0]) == json.loads(json.dumps(result))
           and lines[-1].startswith("Took "), "inference CLI output contract broken")
-    for name in cc.launches:
-        check(launches[name] == n_batches,
-              f"{name} launched {launches[name]} times for {n_batches} batches")
-    check(launches == idle_launches(clahe=n_batches),
+    check(launches["clahe_lab"] == n_batches,
+          f"clahe_lab launched {launches['clahe_lab']} times for {n_batches} batches")
+    check(launches == idle_launches(clahe_lab=n_batches),
           f"the serving path launched a kernel other than CLAHE's: {launches}")
     say("serve", cli_seconds=f"{cli_s:.4f}", cli_img_per_s=f"{N_IMAGES / cli_s:.2f}",
         launches=json.dumps(launches), predictions=lines[1])
@@ -1858,7 +1948,7 @@ def phase_train(torch, seed, work, profile_out):
     finally:
         os.chdir(cwd)
     (work / "train_cli.log").write_text(out.getvalue())
-    want = idle_launches(tent_rows=4 * steps, clahe=steps)
+    want = idle_launches(tent_rows=4 * steps, clahe_lab=steps)
     check(launches == want, f"train CLI launches {launches}, expected {want}")
     finals = sorted((work / "model_weights").glob("final_*.pt"))
     check(len(finals) == 1, f"train CLI wrote {len(finals)} final checkpoints")
@@ -2020,7 +2110,7 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
     finally:
         os.chdir(cwd)
     (work / "train_optin_cli.log").write_text(out.getvalue())
-    want = idle_launches(tent_rows=4 * steps, clahe=steps,
+    want = idle_launches(tent_rows=4 * steps, clahe_lab=steps,
                          conv3x3_wgrad=K7_PER_STEP * steps,
                          **{k: K8_PER_STEP * steps for k in BN_LAUNCHES})
     check(launches == want, f"switched train CLI launches {launches}, expected {want}")
@@ -2223,7 +2313,7 @@ def phase_federated(torch, seed, work, profile_out):
         if not had_weights_dir:
             shutil.rmtree(weights_dir, ignore_errors=True)
     (work / "federated_cli.log").write_text(out.getvalue())
-    want = idle_launches(tent_rows=4 * node_steps, clahe=node_steps)
+    want = idle_launches(tent_rows=4 * node_steps, clahe_lab=node_steps)
     check(launches == want, f"federated CLI launches {launches}, expected {want}")
     check(len(finals) == 1 and np.isfinite(best),
           f"federated CLI: best objective {best}, {len(finals)} final checkpoints")
@@ -2239,7 +2329,7 @@ def phase_federated(torch, seed, work, profile_out):
     check(len(losses) == 1 and np.isfinite(losses[0]), f"federated train losses {losses}")
     say("federated", cli_seconds=f"{cli_s:.4f}", launches=json.dumps(launches),
         tent_rows_per_node_step=launches["tent_rows"] / node_steps,
-        clahe_per_node_step=launches["clahe"] / node_steps, eval_clahe_launches=0,
+        clahe_lab_per_node_step=launches["clahe_lab"] / node_steps, eval_clahe_lab_launches=0,
         workers=",".join(sorted(osd)), epoch_loss=losses[0], best_mcc_percent=best)
 
     # the nodes as the CLI builds them, for the checks and the times
@@ -2832,7 +2922,7 @@ def serve_family(torch, np, phase, args, model, weights, work, data, n_channels)
     preds = result["Inference Results"]
     check(len(preds) == N_IMAGES and set(preds.values()) <= {0, 1, 2},
           f"{phase}: bad inference results {str(preds)[:200]}")
-    want = idle_launches(clahe=n_batches if args.clahe else 0)
+    want = idle_launches(**{clahe_counter(n_channels): n_batches if args.clahe else 0})
     check(launches == want, f"{phase}: serving launches {launches}, expected {want}")
     imgs, _ = PathDataset(data, channels=n_channels).materialize(args.inference_resolution)
     chunks = [imgs[i:i + BATCH] for i in range(0, N_IMAGES, BATCH)]
@@ -3037,14 +3127,15 @@ def encrypt_family(torch, np, phase, work, weights, protocols, signs, clahe, n_i
                    tile, profile_out):
     """The encrypted CLI under each protocol with its exact launches (K4
     ``signs`` a forward under fss, none under snn; CLAHE once a forward
-    tile's batch), its logits against the plain step, and the predict
-    timed at ``batch``. Returns the launches by protocol."""
+    tile's batch, on the counter ``clahe`` names, None where it is off),
+    its logits against the plain step, and the predict timed at ``batch``.
+    Returns the launches by protocol."""
     case = encrypted_case(torch, work, weights, f"{phase}_encrypt_images", n_images, batch)
     out = {}
     for protocol in protocols:
         per = {"dcf_sign": signs} if protocol == "fss" else {}
         if clahe:
-            per["clahe"] = 1 if tile is None else -(-batch // tile)
+            per[clahe] = 1 if tile is None else -(-batch // tile)
         launches, enc, _ = check_encrypted(torch, phase, case, protocol, per, tile)
         time_encrypted(torch, np, phase, protocol, enc, case["imgs"], profile_out,
                        f".{phase}_{protocol}", batches=(batch,), n_timed=3)
@@ -3078,15 +3169,15 @@ def phase_vgg(torch, seed, work, profile_out, ctx):
     by_path = {"vgg_serve": serve_family(torch, np, "vgg", args, model, weights, work,
                                          work / "images", 3)}
     by_path["vgg_train"], _ = train_family(torch, np, "vgg", ini, args, ctx["root"], work,
-                                           {"tent_rows": 4, "clahe": 1})
+                                           {"tent_rows": 4, "clahe_lab": 1})
     fresh, batches, mean, std = family_steps(torch, args, ctx["root"], seed, 3)
     by_path["vgg_optin"] = switched_against_default(
         torch, np, "vgg", args, fresh, batches, mean, std, "PRIMIA_PALLAS_WGRAD",
-        {"tent_rows": 4, "clahe": 1, "conv3x3_wgrad": K7_PER_VGG_STEP}, profile_out,
+        {"tent_rows": 4, "clahe_lab": 1, "conv3x3_wgrad": K7_PER_VGG_STEP}, profile_out,
         VGG_TIMED_STEPS, ("features.", "classifier.2."), VGG_HEAD)
     f32_step_card_vs_cpu(torch, np, "vgg", args, 3, ("classifier.",), seed, VGG_HEAD)
     enc = encrypt_family(torch, np, "vgg_encrypt", work, weights, ("fss", "snn"), SIGNS_VGG,
-                         True, VGG_ENCRYPT_IMAGES, 1, 1, profile_out)
+                         clahe_counter(3), VGG_ENCRYPT_IMAGES, 1, 1, profile_out)
     by_path["vgg_encrypt"], by_path["vgg_encrypt_snn"] = enc["fss"], enc["snn"]
     return by_path
 
@@ -3142,7 +3233,8 @@ def phase_simpleconv(torch, seed, work, profile_out, ctx):
         ("classifier.2.",), CONV_HEAD)
     f32_step_card_vs_cpu(torch, np, "simpleconv", args, 1, ("classifier.",), seed, CONV_HEAD)
     enc = encrypt_family(torch, np, "conv_encrypt", work, weights, ("fss", "snn"),
-                         SIGNS_CONV224, True, ENCRYPT_IMAGES, ENCRYPT_BATCH, None, profile_out)
+                         SIGNS_CONV224, clahe_counter(1), ENCRYPT_IMAGES, ENCRYPT_BATCH, None,
+                         profile_out)
     by_path["conv_encrypt"], by_path["conv_encrypt_snn"] = enc["fss"], enc["snn"]
 
     # MNIST: SimpleConv@28 through --data_dir mnist
@@ -3232,7 +3324,7 @@ def phase_conv_dp(torch, seed, work, profile_out):
     _, weights = family_checkpoint(torch, np, args, work, "simpleconv224-group", seed + 14, 1,
                                    CONV_HEAD)
     enc = encrypt_family(torch, np, "conv_group_encrypt", work, weights, ("fss", "snn"),
-                         SIGNS_CONV224, False, ENCRYPT_IMAGES, ENCRYPT_BATCH, None, profile_out)
+                         SIGNS_CONV224, None, ENCRYPT_IMAGES, ENCRYPT_BATCH, None, profile_out)
 
     froot = work / "dp_federated"
     fini = cut_ini(work, CONV_DP_FED_CONFIG, (("epochs = 60", "epochs = 1"),
@@ -3453,7 +3545,7 @@ def phase_grid(torch, seed, work):
             got = g.run_remote_inference("data_owner", name="resnet18")
             torch.cuda.synchronize()
             launches = read_launches()
-            check(launches == idle_launches(clahe=1),
+            check(launches == idle_launches(clahe_lab=1),
                   f"remote plain request over {name}: launches {launches}")
             check(got["logits"].tobytes() == local.tobytes(),
                   f"remote plain logits over {name} differ from the local predict step's: "
@@ -3496,7 +3588,7 @@ def phase_grid(torch, seed, work):
                 root / f"remote_cli{'_http' if extra else ''}.log")
             check(res == want, f"the inference CLI over the grid {extra} predicts "
                   f"{res['Inference Results']}, locally {want['Inference Results']}")
-            check(launches == local_launches == idle_launches(clahe=1),
+            check(launches == local_launches == idle_launches(clahe_lab=1),
                   f"remote inference CLI launches {launches}")
             say("grid", inference_cli="--websockets_config " + " ".join(extra),
                 cli_seconds=f"{cli_s:.4f}", predictions_equal_local=True)
@@ -3508,7 +3600,7 @@ def phase_grid(torch, seed, work):
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
         launches = read_launches()
-        check(launches == idle_launches(clahe=1, dcf_sign=SIGNS_PER_FORWARD),
+        check(launches == idle_launches(clahe_lab=1, dcf_sign=SIGNS_PER_FORWARD),
               f"remote encrypted request launches {launches}")
         limit = max(0.02, 1e-3 * float(np.abs(local[:1]).max()))
         d = float(np.abs(got["logits"] - local[:1]).max())
@@ -3550,7 +3642,7 @@ def phase_grid(torch, seed, work):
                 "--config", str(ini), "--data_dir", str(fed), "--train_federated",
                 "--websockets", "--save_file", str(root / "runs.csv"), "--device", "cuda"],
                 run_dir, root / "federated_ws_cli.log")
-        want = idle_launches(tent_rows=4 * node_steps, clahe=node_steps)
+        want = idle_launches(tent_rows=4 * node_steps, clahe_lab=node_steps)
         check(launches == want, f"federated ws CLI launches {launches}, expected {want}")
         finals = sorted((run_dir / "model_weights").glob("final_federated_*.pt"))
         check(len(finals) == 1 and np.isfinite(best), f"federated ws CLI: best {best}, "
@@ -3568,7 +3660,7 @@ def phase_grid(torch, seed, work):
             batch=TRAIN_BATCH, rounds=rounds, steps_per_round=steps_round,
             node_steps=node_steps, launches=json.dumps(launches),
             tent_rows_per_node_step=launches["tent_rows"] / node_steps,
-            clahe_per_node_step=launches["clahe"] / node_steps, best_mcc_percent=best,
+            clahe_lab_per_node_step=launches["clahe_lab"] / node_steps, best_mcc_percent=best,
             evaluate_seconds=f"{eval_s:.4f}", matthews=stats["matthews_coeff"])
 
         # the CLI's rounds by parts; the device's share of a round from one
@@ -3658,7 +3750,7 @@ def hpo_launches(args, steps):
     dense = args.elastic or args.optical_distortion or args.grid_distortion
     return idle_launches(tent_rows=steps * (2 * (affine and safe) + 2 * dense),
                          tent_bilinear=steps * (affine and not safe),
-                         clahe=steps * bool(args.clahe))
+                         clahe_lab=steps * bool(args.clahe))
 
 
 def phase_hpo(torch, seed, work, ctx):
@@ -3759,14 +3851,14 @@ def phase_hpo(torch, seed, work, ctx):
                   f"hpo: the seeded study did not prune: {rec}")
         if name == "all_flags":
             flags = [getattr(args, f) for f in find_config.ALBU_FLAGS]
-            check(all(flags) and args.mixup and launches["clahe"] == steps,
+            check(all(flags) and args.mixup and launches["clahe_lab"] == steps,
                   f"hpo all_flags: flags {flags}, mixup {args.mixup}")
         for k, v in launches.items():
             total[k] += v
         say("hpo", trial=name, state=rec["state"], value=rec["value"], seconds=f"{secs:.4f}",
             steps=steps, epochs=args.epochs, repetitions=args.repetitions_dataset,
             intermediate=json.dumps(rec["intermediate"]),
-            k1=launches["tent_rows"], k2=launches["tent_bilinear"], k3=launches["clahe"])
+            k1=launches["tent_rows"], k2=launches["tent_bilinear"], clahe_lab=launches["clahe_lab"])
     states = [t["state"] for t in json.loads(storage.read_text())["trials"][5:]]
     check(states.count("failed") == 0 and "pruned" in states, f"hpo states {states}")
     say("hpo", states=json.dumps(states), launches=json.dumps(total))
@@ -4041,12 +4133,9 @@ def device_profiler(torch):
 def _profile_line(prof, ms):
     """(busy ms, idle share against ``ms``, device operations) of one
     profiled step; "not measured" where the trace holds no device time."""
-    from torch.autograd import DeviceType
-
-    avgs = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in avgs
-               if e.device_type == DeviceType.CUDA) * 1e-3
-    ops = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA)
+    rows = device_rows(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in rows) * 1e-3
+    ops = sum(e.count for e in rows)
     if busy <= 0:
         return "not measured", "not measured", "not measured"
     return f"{busy:.4f}", f"{1.0 - busy / ms:.4f}", ops
@@ -4560,7 +4649,7 @@ def phase_data_parallel(torch, seed, work, ctx):
         check(rel <= 1e-5 and dfc <= 1e-4 and dst <= 1e-5,
               f"rank {i} f32 step: loss {a['loss']} vs {ref_loss} (rel {rel}), fc rel {dfc}, "
               f"BN stats {dst}")
-        check(a["launches"]["tent_rows"] == 4 and a["launches"]["clahe"] == 1,
+        check(a["launches"]["tent_rows"] == 4 and a["launches"]["clahe_lab"] == 1,
               f"rank {i} f32 step launches {a['launches']}")
         worst = {"loss_rel": max(worst.get("loss_rel", 0), rel),
                  "fc_rel": max(worst.get("fc_rel", 0), dfc),
@@ -4570,7 +4659,7 @@ def phase_data_parallel(torch, seed, work, ctx):
     # (b)-(c) bf16 timing
     for i, r in enumerate(res):
         b = r["bf16"]
-        want = idle_launches(tent_rows=4 * DP_TIMED_STEPS, clahe=DP_TIMED_STEPS)
+        want = idle_launches(tent_rows=4 * DP_TIMED_STEPS, clahe_lab=DP_TIMED_STEPS)
         check(b["launches"] == want, f"rank {i} bf16 launches {b['launches']}, expected {want}")
         check(all(np.isfinite(b["losses"])), f"rank {i} bf16 losses {b['losses']}")
         check(b["losses"] == res[0]["bf16"]["losses"], "the ranks report different losses")
@@ -4593,7 +4682,7 @@ def phase_data_parallel(torch, seed, work, ctx):
         noise_draw_ms_rank_rows=f"{res[0]['noise_half_ms']:.6f}")
     # (d) switched
     for i, r in enumerate(res):
-        want = idle_launches(tent_rows=4 * DP_SWITCHED_STEPS, clahe=DP_SWITCHED_STEPS,
+        want = idle_launches(tent_rows=4 * DP_SWITCHED_STEPS, clahe_lab=DP_SWITCHED_STEPS,
                              conv3x3_wgrad=6 * DP_SWITCHED_STEPS,
                              **{k: 20 * DP_SWITCHED_STEPS for k in BN_LAUNCHES})
         check(r["switched_launches"] == want,
@@ -4670,7 +4759,7 @@ def phase_party(torch, seed, work, ctx):
         n = read_launches()
         check(torch.equal(got, ref), f"party-split ResNet-18 {protocol} logits differ")
         check(bool(torch.isfinite(got).all()), f"{protocol}: non-finite logits")
-        want = idle_launches(clahe=1, dcf_sign=SIGNS_PER_FORWARD if protocol == "fss" else 0)
+        want = idle_launches(clahe_lab=1, dcf_sign=SIGNS_PER_FORWARD if protocol == "fss" else 0)
         check(n == want, f"split {protocol} forward launches {n}, expected {want}")
         if protocol == "fss":
             launches = n
@@ -4853,7 +4942,8 @@ def main(argv=None) -> int:
 
         phase_build()
         lap("build")
-        rec = {"clahe": phase_kernels(torch, opts.seed)}
+        rec = {}
+        rec["clahe"], rec["clahe_lab"] = phase_kernels(torch, opts.seed)
         rec.update(phase_tent(torch, opts.seed))
         lap("clahe_tent")
         rec["dcf_sign"] = phase_dcf(torch, opts.seed, sm_max_mhz)

@@ -1,10 +1,13 @@
 """CLAHE in the PyTorch port against the JAX package.
 
-The port's plain version (what its wrapper runs on CPU tensors) is held
+The port's plain versions (what its wrappers run on CPU tensors) are held
 to the JAX package's CPU gather path and to its whole TPU function, both
-Pallas kernels in interpret mode (the CUDA kernel is held to the plain
-version on the card by ``test_torch_cuda_kernels.py``). Inputs are made
-with numpy and passed to both sides.
+Pallas kernels in interpret mode (the CUDA kernels are held to the plain
+versions on the card by ``test_torch_cuda_kernels.py``). Inputs are made
+with numpy and passed to both sides. The 3-channel path's plain version
+is held to the composition it replaced, and what its kernel relies on
+(the sRGB table, the L round trip it skips) is checked on every value it
+can take.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ from primia_tpu.ops.pallas_clahe import clahe_luts as jax_clahe_luts
 from primia_tpu.ops.pallas_clahe import clahe_pallas as jax_clahe_pallas
 from primia_tpu_torch.ops import cuda_clahe
 from primia_tpu_torch.ops import image as timage
+from primia_tpu_torch.ops.numerics import div
 
 
 @pytest.fixture(autouse=True)
@@ -44,7 +48,7 @@ def test_clahe_channels_matches_jax_gather_path(shape):
     side may contract the bilinear mix into FMAs)."""
     x = _u8(np.random.default_rng(0), shape).astype(np.float32) / 255.0
     ref = np.asarray(jimage._clahe_channels(jnp.asarray(x), 1.0, 8))
-    got = timage._clahe_channels(torch.from_numpy(x), 1.0, 8).numpy()
+    got = cuda_clahe.clahe_channels(torch.from_numpy(x), 1.0, 8).numpy()
     assert got.shape == ref.shape and got.dtype == np.float32
     d = _level_diff(got, ref)
     assert d.max() <= 1.0 + 1e-4
@@ -53,9 +57,9 @@ def test_clahe_channels_matches_jax_gather_path(shape):
 
 def test_clahe_channels_channels_first_matches_nhwc():
     x = _u8(np.random.default_rng(1), (2, 48, 40, 2)).astype(np.float32) / 255.0
-    nhwc = timage._clahe_channels(torch.from_numpy(x))
-    nchw = timage._clahe_channels(torch.from_numpy(x).permute(0, 3, 1, 2),
-                                  channels_first=True)
+    nhwc = cuda_clahe.clahe_channels(torch.from_numpy(x))
+    nchw = cuda_clahe.clahe_channels(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                     channels_first=True)
     torch.testing.assert_close(nchw.permute(0, 2, 3, 1), nhwc, rtol=0, atol=0)
 
 
@@ -190,3 +194,105 @@ def test_kernel_division_by_255_is_the_ieee_quotient():
         got = _rn32_unambiguous(q0 + r * y)
         want = _rn32_unambiguous(v / 255.0)
         np.testing.assert_array_equal(got, want)
+
+
+def _old_composition(imgs, clip_limit=1.0, tiles=8, channels_first=False):
+    """``image.clahe`` on 3 channels as it was written before the 3-channel
+    kernel: LAB in uint8, the per-channel CLAHE of L, back to RGB."""
+    ch_ax = 1 if channels_first else -1
+    lab = torch.round(timage.rgb_to_lab_u8(imgs, axis=ch_ax)).to(torch.uint8)
+    L = lab.narrow(ch_ax, 0, 1)
+    L_eq = cuda_clahe.clahe_channels(div(L.float(), 255.0), clip_limit, tiles,
+                                     channels_first=channels_first)
+    L_u8 = torch.round(L_eq.float() * 255.0).to(torch.uint8)
+    lab = torch.cat([L_u8, lab.narrow(ch_ax, 1, 2)], dim=ch_ax)
+    return timage.lab_u8_to_rgb(lab.float(), axis=ch_ax).to(imgs.dtype)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw", "nchw_view_of_nhwc"])
+@pytest.mark.parametrize("shape", [(2, 64, 64), (3, 37, 45)])
+def test_clahe_on_three_cpu_channels_equals_the_old_composition(layout, shape):
+    """Bit for bit, NHWC and channels first (contiguous, and the predict
+    steps' NCHW view of NHWC images), at a shape the tiles divide and a
+    ragged one; the 3-channel route counts no launch on the CPU."""
+    B, H, W = shape
+    x = torch.from_numpy(np.random.default_rng(12).random((B, H, W, 3), dtype=np.float32))
+    before = dict(cuda_clahe.launches)
+    if layout == "nhwc":
+        got, want = timage.clahe(x), _old_composition(x)
+    else:
+        v = x.permute(0, 3, 1, 2)
+        if layout == "nchw":
+            v = v.contiguous()
+        got = timage.clahe(v, channels_first=True)
+        want = _old_composition(v, channels_first=True)
+    assert cuda_clahe.launches == before
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_clahe_rgb_on_cpu_runs_the_plain_version_without_counting():
+    x = torch.from_numpy(np.random.default_rng(13).random((2, 3, 40, 48), dtype=np.float32))
+    before = dict(cuda_clahe.launches)
+    out = cuda_clahe.clahe_rgb(x, 1.0, 8)
+    assert cuda_clahe.launches == before
+    assert torch.equal(out, cuda_clahe.clahe_rgb_plain(x, 1.0, 8))
+    assert out.shape == x.shape and out.is_contiguous()
+    assert float(out.min()) >= 0 and float(out.max()) <= 1
+
+
+def test_clahe_rgb_keeps_an_nhwc_layout():
+    """The NCHW view of NHWC images comes back in the same layout, as the
+    kernel writes it; contiguous NCHW comes back contiguous."""
+    x = torch.from_numpy(np.random.default_rng(14).random((2, 32, 32, 3), dtype=np.float32))
+    out = cuda_clahe.clahe_rgb(x.permute(0, 3, 1, 2))
+    assert out.permute(0, 2, 3, 1).is_contiguous()
+    assert torch.equal(out.contiguous(), cuda_clahe.clahe_rgb(x.permute(0, 3, 1, 2).contiguous()))
+
+
+@pytest.mark.parametrize("x", [torch.zeros((2, 3, 16, 16), dtype=torch.float64),
+                               torch.zeros((2, 3, 16, 16), dtype=torch.bfloat16),
+                               torch.zeros((2, 1, 16, 16)), torch.zeros((2, 4, 16, 16)),
+                               torch.zeros((3, 16, 16)), torch.zeros((1, 2, 3, 16, 16))],
+                         ids=["float64", "bfloat16", "1-channel", "4-channel", "3-D", "5-D"])
+def test_clahe_rgb_rejects_other_than_float32_three_channel_4d(x):
+    with pytest.raises(ValueError):
+        cuda_clahe.clahe_rgb(x)
+
+
+def test_srgb_table_equals_the_plain_quantize_and_linearize():
+    """The kernel looks ``_srgb_to_linear`` up at each channel's 8-bit level
+    (floor(x 255 + 0.5), clamped). On every float32 from -2^-7 to 1 + 2^-7
+    that is spaced no wider than 2^-24 around the 256 rounding edges, and
+    on a dense grid elsewhere, table[level] equals the plain path's
+    ``_srgb_to_linear(div(floor(...), 255))`` bit for bit."""
+    edges = (np.arange(-1, 257, dtype=np.float64) + 0.5) / 255.0
+    near = edges[:, None] + np.arange(-64, 65)[None, :] * 2.0 ** -24
+    grid = np.linspace(-2.0 ** -7, 1.0 + 2.0 ** -7, 1 << 20)
+    x = torch.from_numpy(np.concatenate([near.ravel(), grid]).astype(np.float32))
+    q = torch.floor((x * 255.0 + 0.5).clamp(0, 255))
+    assert bool(((q >= 0) & (q <= 255) & (q == q.round())).all())
+    table = cuda_clahe.srgb_levels(torch.device("cpu"))
+    assert table.shape == (256,) and table.dtype == torch.float32
+    want = cuda_clahe._srgb_to_linear(div(q, 255.0))
+    assert torch.equal(table[q.long()], want)
+
+
+def test_the_l_round_trip_the_kernel_skips_is_the_identity():
+    """The plain path hands L to the per-channel CLAHE as L / 255, which
+    quantizes it again as (v 255 + 0.5) clamped and truncated: on each of
+    the 256 levels that gives back L, so the kernel keeps L itself."""
+    L = torch.arange(256, dtype=torch.uint8).reshape(1, 1, 16, 16)
+    v = div(L.float(), 255.0)
+    back = (v * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+    assert torch.equal(back, L)
+
+
+def test_lab_constants_are_the_plain_path_numbers():
+    """33 numbers, in ``LabConsts``'s order: the two matrices, then the
+    scalars, each a finite float32."""
+    k = np.asarray(cuda_clahe.lab_constants(), np.float64)
+    assert k.shape == (33,) and np.isfinite(k.astype(np.float32)).all()
+    np.testing.assert_array_equal(k[:9], cuda_clahe._RGB2XYZ.ravel())
+    np.testing.assert_array_equal(k[9:18], np.linalg.inv(cuda_clahe._RGB2XYZ).ravel())
+    assert k[22] == cuda_clahe._LAB_KAPPA * cuda_clahe._LAB_EPS and k[23] == 1.0 / 3.0

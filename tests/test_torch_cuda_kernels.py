@@ -14,8 +14,7 @@ import torch
 from primia_tpu_torch.mpc import compare, ring_ops
 from primia_tpu_torch.mpc import shares as S
 from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
-from primia_tpu_torch.ops.image import (_clahe_channels, clahe, rgb_to_lab_u8, warp_affine,
-                                        warp_dense)
+from primia_tpu_torch.ops.image import clahe, rgb_to_lab_u8, warp_affine, warp_dense
 
 
 @pytest.fixture
@@ -88,8 +87,9 @@ def test_clahe_channels_on_the_card_equal_the_cpu(cuda_device):
     divide as IEEE division on both devices."""
     rng = np.random.default_rng(9)
     L = torch.from_numpy(rng.integers(0, 256, (2, 1, 224, 224), dtype=np.uint8)) / 255.0
-    got = _clahe_channels(L.to(cuda_device), channels_first=True).cpu()
-    torch.testing.assert_close(got, _clahe_channels(L, channels_first=True), rtol=0, atol=0)
+    got = cuda_clahe.clahe_channels(L.to(cuda_device), channels_first=True).cpu()
+    torch.testing.assert_close(got, cuda_clahe.clahe_channels(L, channels_first=True), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.cuda
@@ -104,6 +104,116 @@ def test_lab_path_on_the_card_against_the_cpu(cuda_device):
     torch.testing.assert_close(lab, rgb_to_lab_u8(x, axis=1), rtol=0, atol=1e-4)
     d = (clahe(x.to(cuda_device), channels_first=True).cpu() - clahe(x, channels_first=True))
     assert float((d.abs() * 255.0 > 1.0 + 1e-3).float().mean()) <= 1e-4
+
+
+def _rgb(shape, layout, device, seed=15):
+    """(B, 3, H, W) float32 in [0, 1]: contiguous NCHW, or NHWC images seen
+    as NCHW (the predict steps' view)."""
+    B, C, H, W = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((B, H, W, C), generator=g, device=device)
+    return x.permute(0, 3, 1, 2).contiguous() if layout == "nchw" else x.permute(0, 3, 1, 2)
+
+
+def _check_clahe_rgb(x):
+    """The 3-channel kernel against the plain composition on the card: one
+    launch of it and none of K3, bit for bit, the input's layout, and the
+    same bits on a second call."""
+    before = dict(cuda_clahe.launches)
+    out = cuda_clahe.clahe_rgb(x)
+    torch.cuda.synchronize()
+    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 1
+    assert cuda_clahe.launches["clahe"] == before["clahe"]
+    assert out.stride() == x.stride()
+    want = cuda_clahe.clahe_rgb_plain(x)
+    d = (out - want).abs()
+    assert torch.equal(out, want), (f"{int((d > 0).sum())} of {d.numel()} values differ, "
+                                    f"by up to {float(d.max()) * 255.0} levels")
+    assert torch.equal(cuda_clahe.clahe_rgb(x), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("shape", [(200, 3, 224, 224), (64, 3, 224, 224), (3, 3, 60, 60),
+                                   (2, 3, 64, 64)], ids=lambda s: "x".join(map(str, s)))
+def test_clahe_rgb_matches_the_plain_composition(cuda_device, shape, layout):
+    _check_clahe_rgb(_rgb(shape, layout, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["low_entropy_grey", "low_entropy_colour", "grey"])
+def test_clahe_rgb_on_low_entropy_and_grey_images(cuda_device, kind):
+    """200 images of 224²: the low-entropy planes (all zero, 90% one value,
+    a ramp) as grey images with three equal channels, as the
+    configurations' X-rays are, or one kind a channel; and random grey
+    images."""
+    n, H = 200, 224
+    if kind == "grey":
+        planes = _planes((n, H, H), cuda_device, seed=16).float() / 255.0
+        x = planes[:, None].expand(n, 3, H, H).contiguous()
+    else:
+        low = torch.from_numpy(_low_entropy_planes(n + 2, H, H)).to(cuda_device).float() / 255.0
+        if kind == "low_entropy_grey":
+            x = low[:n, None].expand(n, 3, H, H).contiguous()
+        else:
+            x = torch.stack([low[:n], low[1:n + 1], low[2:n + 2]], dim=1)
+    _check_clahe_rgb(x)
+
+
+@pytest.mark.cuda
+def test_clahe_rgb_at_a_ragged_shape_and_three_tiles(cuda_device):
+    """37 x 45 at 3 tiles: tile rows 15 px wide and bands past the last row."""
+    x = _rgb((3, 3, 37, 45), "nhwc", cuda_device)
+    before = dict(cuda_clahe.launches)
+    out = cuda_clahe.clahe_rgb(x, tiles=3)
+    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 1
+    assert torch.equal(out, cuda_clahe.clahe_rgb_plain(x, tiles=3))
+
+
+@pytest.mark.cuda
+def test_three_channel_clahe_on_the_card_takes_the_lab_kernel_one_channel_k3(cuda_device):
+    """``image.clahe`` sends 3 channels to the LAB kernel and 1 channel to
+    K3, once a call each."""
+    x = _rgb((2, 3, 64, 64), "nchw", cuda_device)
+    before = dict(cuda_clahe.launches)
+    clahe(x, channels_first=True)
+    clahe(x.permute(0, 2, 3, 1))
+    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 2
+    assert cuda_clahe.launches["clahe"] == before["clahe"]
+    clahe(x[:, :1], channels_first=True)
+    assert cuda_clahe.launches["clahe"] == before["clahe"] + 1
+    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 2
+
+
+@pytest.mark.cuda
+def test_a_train_step_on_the_card_launches_the_lab_kernel_once(cuda_device):
+    """The canonical recipe's step (CLAHE on 3-channel images) on a small
+    ResNet at 64 px: the LAB kernel once a step, K3 never."""
+    from pathlib import Path
+
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.nn import ResNet
+    from primia_tpu_torch.train.optim import make_optimizer
+    from primia_tpu_torch.train.steps import build_train_step
+
+    ini = Path(__file__).resolve().parent.parent / "configs/torch/pneumonia-resnet-pretrained.ini"
+    args = Arguments.from_ini(ini)
+    args.train_resolution = args.inference_resolution = 64
+    args.batch_size = 4
+    assert args.clahe
+    model = ResNet((1, 1, 1, 1), num_classes=3, in_channels=3, input_size=64).to(cuda_device)
+    step = build_train_step(model, make_optimizer(args, model), args, [0.5] * 3, [0.25] * 3,
+                            device=cuda_device)
+    rng = np.random.default_rng(17)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    labels = rng.integers(0, 3, 4).astype(np.int32)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    before = dict(cuda_clahe.launches)
+    for _ in range(2):
+        loss = step(gen, images, labels, np.ones(4, np.float32), 1e-4)
+    assert bool(torch.isfinite(loss).all())
+    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 2
+    assert cuda_clahe.launches["clahe"] == before["clahe"]
 
 
 @pytest.mark.cuda
