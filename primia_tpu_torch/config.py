@@ -25,7 +25,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-VALID_MODELS = ("simpleconv", "resnet-18", "vgg16")
+# swin-b: the port only (nn/swin.py); the JAX package has no such model
+VALID_MODELS = ("simpleconv", "resnet-18", "vgg16", "swin-b")
 VALID_OPTIMIZERS = ("SGD", "Adam")
 VALID_POOLING = ("max", "avg")
 

@@ -42,7 +42,8 @@
 //     butterfly), spread it evenly (h = min(h, limit) + excess/256), an
 //     inclusive scan (the lane's eight, then the lanes' totals),
 //     lut = clip(rint(cdf / P * 255), 0, 255). With clip_limit 1 every value
-//     is a multiple of 2^-12 below 2^10 at 224 px (28x28 tiles), and an
+//     is a multiple of 2^-12 below 2^10 at 224 px (28x28 tiles), a
+//     multiple of 2^-8 below 2^12 at 384 px (48x48 tiles, limit 9), and an
 //     integer at 60 or 64 px (8x8 tiles, limit 1), so the f32 sums are
 //     exact in any order and the LUTs equal the plain version's bit for
 //     bit. The T LUTs go to shared memory as uint8 (exact: integers in

@@ -59,6 +59,7 @@ from primia_tpu_torch.mpc.engine import (MpcContext, MpcEngine, check_protocol,
 from primia_tpu_torch.mpc.shares import AShare
 from primia_tpu_torch.nn.core import Conv, Norm, bn_fold
 from primia_tpu_torch.nn.simpleconv import SimpleConv
+from primia_tpu_torch.nn.swin import refuse
 from primia_tpu_torch.nn.vgg import VGG
 from primia_tpu_torch.ops.image import clahe
 from primia_tpu_torch.ops.numerics import div
@@ -228,7 +229,10 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     numbers the streams too (a grid node keeps one predict function a
     request seed); 0 gives the streams above. ``party_devices``: a pair of
     devices, party 0's and party 1's (the module's note); None keeps both
-    parties' shares stacked on ``device``."""
+    parties' shares stacked on ``device``. A Swin Transformer raises a
+    ValueError: the engine has no softmax, GELU or layer norm over shares."""
+    refuse(model, "the encrypted predict",
+           "the MPC engine has no softmax, GELU or layer norm over shares")
     device = torch.device(device)
     parties = S.party_devices_of(party_devices)
 

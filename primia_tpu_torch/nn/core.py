@@ -149,9 +149,12 @@ class Conv(nn.Module):
 
 
 class Norm(nn.Module):
-    """Batch norm (``kind="batch"``) or group norm (``kind="group"``).
-    Both keep the same weights and BN-shaped buffers, so checkpoints are
-    layout-identical, as in the JAX package.
+    """Batch norm (``kind="batch"``), group norm (``kind="group"``) or layer
+    norm (``kind="layer"``). Batch and group norm keep the same weights and
+    BN-shaped buffers, so checkpoints are layout-identical, as in the JAX
+    package. Layer norm (the Swin Transformer's, ``nn/swin.py``) normalises
+    the last dimension, ``F.layer_norm`` with float32 statistics (autocast
+    runs it in float32), and has no running-statistics buffers.
 
     Train-mode batch norm follows ``primia_tpu/nn/core.py:batch_norm``
     (train=True): float32 batch statistics over (N, H, W), the biased
@@ -173,16 +176,20 @@ class Norm(nn.Module):
 
     def __init__(self, c: int, kind: str = "batch", eps: float = 1e-5):
         super().__init__()
-        if kind not in ("batch", "group"):
+        if kind not in ("batch", "group", "layer"):
             raise ValueError(f"unknown normalization {kind!r}")
         self.kind, self.eps = kind, eps
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
+        if kind == "layer":
+            return
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "layer":
+            return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, self.eps)
         if self.kind == "group":
             return group_norm(x, self.weight, self.bias, self.groups, self.eps)
         if self.training:

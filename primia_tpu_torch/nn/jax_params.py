@@ -12,7 +12,11 @@ Leaves: ``w`` of a conv -> ``weight`` (HWIO -> OIHW), and ``b`` ->
 ``bias`` where the conv has one (VGG-16, SimpleConv); ``w``/``b`` of a
 linear -> ``weight`` (transposed)/``bias``; ``gamma``/``beta`` of a norm
 -> ``weight``/``bias``; its state ``mean``/``var``/``count`` ->
-``running_mean``/``running_var``/``num_batches_tracked`` (int64).
+``running_mean``/``running_var``/``num_batches_tracked`` (int64); a
+layer norm has no state. The Swin Transformer's (``nn/swin.py``, which the
+JAX package does not have) attention modules add a leaf ``bias_table`` ->
+``relative_position_bias_table``, kept as it is, and its patch merging a
+linear layer without ``b``.
 
 A numbered level of module names is a JAX list when its keys are
 ``0 .. n-1`` (a layer's blocks, VGG's ``features``, the classifiers) and
@@ -34,8 +38,10 @@ import torch
 import torch.nn as nn
 
 from primia_tpu_torch.nn.core import Conv, Norm
+from primia_tpu_torch.nn.swin import WindowAttention
 
-_PARAM_LEAF = {"gamma": "weight", "beta": "bias", "b": "bias"}
+_PARAM_LEAF = {"gamma": "weight", "beta": "bias", "b": "bias",
+               "bias_table": "relative_position_bias_table"}
 _STATE_LEAF = {"mean": "running_mean", "var": "running_var",
                "count": "num_batches_tracked"}
 
@@ -115,10 +121,18 @@ def _module_params(m: nn.Module) -> Dict[str, Tuple[str, str]]:
         return {"w": ("weight", "conv"),
                 **({} if m.bias is None else {"b": ("bias", "vector")})}
     if isinstance(m, nn.Linear):
-        return {"w": ("weight", "linear"), "b": ("bias", "vector")}
+        return {"w": ("weight", "linear"),
+                **({} if m.bias is None else {"b": ("bias", "vector")})}
     if isinstance(m, Norm):
         return {"gamma": ("weight", "vector"), "beta": ("bias", "vector")}
+    if isinstance(m, WindowAttention):
+        return {"bias_table": ("relative_position_bias_table", "vector")}
     return {}
+
+
+def _has_state(m: nn.Module) -> bool:
+    """A batch or group norm: the modules with running statistics."""
+    return isinstance(m, Norm) and m.kind != "layer"
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -196,7 +210,7 @@ def to_jax_tree(module: nn.Module, leaf: Optional[Callable] = None
         if leaves:
             params[name] = {k: p_leaf(_jax_layout(getattr(m, a), lay))
                             for k, (a, lay) in leaves.items()}
-        if isinstance(m, Norm):
+        if _has_state(m):
             state[name] = {k: s_leaf(getattr(m, a)) for k, a in _STATE_LEAF.items()}
     return _nest(params), _nest(state)
 
@@ -215,7 +229,7 @@ def jax_leaf_paths(module: nn.Module) -> List[Tuple[tuple, str]]:
         leaves = _module_params(m)
         if leaves:
             params[name] = {k: pre + a for k, (a, _) in leaves.items()}
-        if isinstance(m, Norm):
+        if _has_state(m):
             state[name] = {k: pre + v for k, v in _STATE_LEAF.items()}
     return list(tree_paths({"params": _nest(params), "state": _nest(state)}))
 

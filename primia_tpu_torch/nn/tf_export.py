@@ -27,6 +27,7 @@ import torch.nn as nn
 from primia_tpu_torch.nn.core import Conv, Norm, bn_fold
 from primia_tpu_torch.nn.resnet import ResNet
 from primia_tpu_torch.nn.simpleconv import SimpleConv
+from primia_tpu_torch.nn.swin import refuse
 from primia_tpu_torch.nn.vgg import VGG
 
 
@@ -166,7 +167,10 @@ def make_serving_fn(model: nn.Module, mean, std,
     """TF-ops inference closure over the model's frozen weights:
     ``images_u8 (B, R, R, C) uint8 -> logits (B, num_classes) float32``,
     ``build_eval_step``'s preprocessing (center crop to the train
-    resolution, per-channel normalise) and the eval-mode forward."""
+    resolution, per-channel normalise) and the eval-mode forward. A Swin
+    Transformer raises a ValueError: the exporter has no window attention,
+    layer norm or GELU."""
+    refuse(model, "TF export", "the exporter has no window attention, layer norm or GELU")
     import tensorflow as tf
 
     ops = _Ops(tf)

@@ -57,6 +57,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from primia_tpu_torch.nn.core import Conv, Norm, bn_fold, group_normalize
+from primia_tpu_torch.nn.swin import refuse
 from primia_tpu_torch.ops.augment import AugmentConfig, build_augment_fn
 from primia_tpu_torch.ops.cuda_wgrad import conv3x3_wgrad_v2, use_pallas_wgrad
 from primia_tpu_torch.train import losses
@@ -138,9 +139,14 @@ def build_dp_train_step(model: nn.Module, optimizer, args, mean, std,
     ``autograd.Function`` (``nn/core.py:Conv``), whose ``vmap`` rule
     launches K7 once an example of the chunk, as the JAX package's ``vmap``
     batches its Pallas weight gradient.
+
+    A Swin Transformer raises a ValueError: no per-example gradient of its
+    window attention is held to a reference.
     """
     from torch.func import functional_call, grad_and_value, vmap
 
+    refuse(model, "the microbatched DP step",
+           "no per-example gradient of window attention is held to a reference")
     device = torch.device(device)
     if microbatch is None:
         microbatch = int(os.environ.get("PRIMIA_DP_MICROBATCH", 8))
@@ -410,7 +416,10 @@ def build_ghost_dp_train_step(model: nn.Module, optimizer, args, mean, std,
        the division, ``optimizer.update``.
 
     Class weights drop out of a single example's hard-label cross entropy
-    (``w_y ce / w_y``), as in the microbatched path."""
+    (``w_y ce / w_y``), as in the microbatched path. A Swin Transformer
+    raises a ValueError: ghost clipping has no rule for attention."""
+    refuse(model, "the ghost-norm DP step",
+           "ghost clipping has no per-example norm rule for attention")
     device = torch.device(device)
     _warn_secure_noise()
     in_channels = model.in_channels

@@ -92,15 +92,21 @@ def profile(logdir: str = "build/primia_trace"):
 
 # host counters, counted only while a profiler runs: ``h2d_copies``, the
 # host arrays copied onto a step's device by ``train/steps.py:_on`` and
-# ``data/loader.py:BatchLoader``'s index upload (:func:`count_h2d`)
-counters: Dict[str, int] = {"h2d_copies": 0}
+# ``data/loader.py:BatchLoader``'s index upload (:func:`count_h2d`);
+# ``attention_calls``, the calls of ``nn/swin.py:window_attention``
+counters: Dict[str, int] = {"h2d_copies": 0, "attention_calls": 0}
+
+
+def count(name: str) -> None:
+    """Counts one event in ``counters[name]``, while a profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        counters[name] += 1
 
 
 def count_h2d() -> None:
     """Counts one host array copied onto a step's device, while a profiler
     runs."""
-    if _autograd_profiler._is_profiler_enabled:
-        counters["h2d_copies"] += 1
+    count("h2d_copies")
 
 
 # ------------------------------------------------------------------- spans
