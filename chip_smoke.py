@@ -130,6 +130,23 @@ Phases, each reported on its own line; any failure exits nonzero:
                   the Philox multiplies, the special-function unit or the
                   issued instructions, whichever is largest; the SASS opcode
                   counts (checked against the bound's counts) and registers.
+11b. window_attention  Swin's window attention on the port's kernel pair
+                  (``ops/cuda_attention.py``): the source's nvcc seconds
+                  (a build into an empty directory) and the kernels'
+                  registers and spills (cuobjdump -res-usage); at Swin-B's
+                  stage-1 (4,096 windows, 4 heads) and stage-3 (256, 16)
+                  shapes, L 144, bf16 views of a qkv output, regular and
+                  shifted: o and the four gradients against float64, the
+                  same bits over two backward calls; forward and backward
+                  each: device and call ms beside its own least time, the
+                  plain version's and the memory-efficient SDPA's (a
+                  yardstick), and both together beside the least time of
+                  ``benchmark/attention.py``; the float32 build at the
+                  stage-3 shape.
+11c. swin_train   one Swin-B train step at the cell swin_b384.train's
+                  shapes (batch 64, 384 px) after a warm-up step, its
+                  launch counters counted from zero: 24 forward and 24
+                  backward window-attention launches, one each a block.
 12. ring          the card's byte-limb ring conv (int8 torch._int_mm) against
                   the CPU's native int64 conv, bit for bit, at the stem conv
                   at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
@@ -517,6 +534,18 @@ KERNELS = {
     "gaussian_noise": {"replaces": "primia_tpu/ops/pallas_kernels.py:145", "path": "noise",
                        "kernel": ("gaussian_noise_kernel",),
                        "source": "primia_tpu_torch/csrc/noise.cu"},
+    # Swin's window attention replaces no TPU kernel (the JAX package has
+    # no Swin): PyTorch's fused attention, which the port does not call.
+    # Its path is one Swin-B train step at the cell swin_b384.train's
+    # shapes; the backward's time counts its finalize
+    "window_attention_fwd": {"replaces": "none: F.scaled_dot_product_attention (no Swin in JAX)",
+                             "path": "swin_train", "kernel": ("fmha_cutlassF_window_kernel",),
+                             "source": "primia_tpu_torch/csrc/window_attention.cu"},
+    "window_attention_bwd": {"replaces": "none: F.scaled_dot_product_attention (no Swin in JAX)",
+                             "path": "swin_train",
+                             "kernel": ("fmha_cutlassB_window_kernel",
+                                        "fmha_cutlassB_window_bias_grad_kernel"),
+                             "source": "primia_tpu_torch/csrc/window_attention.cu"},
 }
 KERNEL_NAMES = sorted({k for meta in KERNELS.values() for k in meta["kernel"]}, key=len,
                       reverse=True)
@@ -681,7 +710,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    for name in ("clahe", "tent", "dcf", "wgrad", "bn", "noise"):
+    for name in ("clahe", "tent", "dcf", "wgrad", "bn", "noise", "window_attention"):
         check(name in libs and libs[name].is_file(), f"{name}.cu did not build")
     say("build", seconds=f"{secs:.3f}", libraries=",".join(sorted(libs)))
 
@@ -1474,6 +1503,227 @@ def phase_noise(torch, seed, sm_max_mhz):
         check(loop is None or loop >= 4 * NOISE_ISSUE_PER_ELEMENT,
               f"K5's loop holds {loop} instructions, fewer than its bound counts")
     return {**r, "max_abs_err": max(errs.values())}, launches
+
+
+def attention_least(Bw, h, L, d, itemsize, masked):
+    """The least time of each of the window-attention kernel pair's two
+    calls, from what its design must move and compute: the forward reads
+    q, k, v, the float32 bias (and, masked, the (nW, L) int32 region ids,
+    ``masked`` windows) and writes o and the rows' float32 log-sum-exp; the
+    backward reads q, k, v, dO, the bias, the ids and the log-sum-exp and
+    writes dq, dk, dv and the float32 bias gradient (it never reads o).
+    FLOPs 4 Bw h L^2 d forward and 8 backward at the dense bf16 peak (P's
+    recompute not counted). ``benchmark/attention.py:least_seconds``
+    counts o again in the backward and the bias in q's dtype."""
+    t, lse, b = itemsize * Bw * h * L * d, 4 * Bw * h * L, 4 * h * L * L
+    ids, mma = 4 * masked * L, Bw * h * L * L * d
+    return (bound(4 * t + lse + b + ids, 4 * mma, PEAK_BF16_TENSOR_OPS_PER_S),
+            bound(7 * t + lse + 2 * b + ids, 8 * mma, PEAK_BF16_TENSOR_OPS_PER_S))
+
+
+def _kernel_label(mangled):
+    """``fmha_..._kernel<NT>`` from a kernel's mangled name."""
+    import re
+
+    m = re.search(r"(fmha_[A-Za-z0-9_]*?_kernel)(?:ILi(\d+)E)?", mangled)
+    if m is None:
+        return mangled
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def phase_window_attention(torch, seed):
+    """Phase 11b: Swin's window attention on the port's kernels
+    (``ops/cuda_attention.py``, ``csrc/window_attention.cu``): the source's
+    nvcc seconds (a build into an empty directory) and each kernel's
+    registers and spills (cuobjdump); then at Swin-B's stage-1 shape (Bw
+    4096 = 64 images x 64 windows, h 4) and stage-3 shape (Bw 256, h 16), L
+    144, d 32, bf16 operands laid out as the model hands them (strided
+    views of the qkv output), unshifted and shifted: o and the four
+    gradients against the plain version in float64 (norms' gaps under
+    1e-2, 2e-2 for dq and dk, 1e-4 for the bias gradient: P and dS are
+    rounded to bf16 before their products), the same bits over two
+    backward calls; each direction's device ms (profiler, every kernel the
+    call launches) and call ms (CUDA events) beside its own least time
+    (:func:`attention_least`), the plain version's ms and, as library_ms,
+    ``F.scaled_dot_product_attention`` on the memory-efficient backend with
+    the bias (and mask) summed and cast as the port used to (a yardstick
+    the port no longer calls); both directions together beside
+    ``benchmark/attention.py:least_seconds``; forward and backward of the
+    float32 build at the stage-3 shape, masked, within 1e-5 of float64.
+    Returns the records of ``window_attention_fwd`` and ``_bwd`` at the
+    unshifted stage-1 shape, the train step's largest call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from benchmark import attention
+    from primia_tpu_torch.nn import swin
+    from primia_tpu_torch.ops import _build
+    from primia_tpu_torch.ops import cuda_attention as ca
+
+    built, _build.BUILD_DIR = _build.BUILD_DIR, ROOT / "build" / "chip_smoke" / "nvcc"
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        _build.build(["window_attention"])
+        say("window_attention", nvcc_seconds=f"{time.perf_counter() - t0:.3f}")
+    finally:
+        _build.BUILD_DIR = built
+    usage = resource_usage("window_attention", mangled=True)
+    for mangled, res in sorted((usage or {}).items()):
+        say("window_attention", kernel=_kernel_label(mangled),
+            **{k.lower(): res[k] for k in ("REG", "STACK", "LOCAL", "SHARED") if k in res})
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, d = 144, 32
+
+    def operands(B, nW, h, shifted, dtype):
+        qkv = torch.randn((B, nW, L, 3 * h * d), generator=g, device=dev).to(dtype)
+        q, k, v = (t.transpose(2, 3) for t in qkv.reshape(B, nW, L, 3, h, d).unbind(3))
+        table = torch.randn(((2 * 12 - 1) ** 2, h), generator=g, device=dev) * 0.02
+        bias = table[swin.relative_position_index(12).to(dev)].permute(2, 0, 1)
+        side = int(nW ** 0.5) * 12
+        regions = swin.shift_regions(side, 12, 6).to(dev) if shifted else None
+        do = torch.randn((B, nW, L, h, d), generator=g, device=dev).to(dtype)
+        return q, k, v, bias, regions, do.permute(0, 1, 3, 2, 4)
+
+    def gaps(q, k, v, bias, regions, do):
+        """Each output's relative norm gap and largest absolute gap from
+        float64."""
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        o = ca.window_attention(*leaves, regions)
+        got = (o, *torch.autograd.grad(o, leaves, do))
+        ref = [t.detach().double().requires_grad_() for t in (q, k, v, bias)]
+        want = ca.window_attention_plain(*ref, regions)
+        want = (want, *torch.autograd.grad(want, ref, do.double()))
+        diffs = {n: (a.detach().double() - b.detach(), b.detach())
+                 for n, a, b in zip(("o", "dq", "dk", "dv", "dbias"), got, want)}
+        return ({n: float(e.norm() / b.norm()) for n, (e, b) in diffs.items()},
+                {n: float(e.abs().max()) for n, (e, _) in diffs.items()})
+
+    def library(q, k, v, bias, regions):
+        B, nW, h = q.shape[:3]
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        if regions is None:
+            attn, shape = bias.unsqueeze(0), (B * nW, h, L, d)
+        else:
+            mask = ca.region_mask(regions)
+            attn = (bias.unsqueeze(0) + torch.where(mask.unsqueeze(1), ca.MASK_VALUE, 0.0)
+                    ).reshape(1, nW * h, L, L)
+            shape = (B, nW * h, L, d)
+        q, k, v = (t.reshape(shape).requires_grad_() for t in (q, k, v))
+        attn = attn.to(q.dtype).contiguous().requires_grad_()
+        return q, k, v, attn
+
+    def backward_ms(fn, leaves, grad):
+        """ms of the backward alone: one forward kept, its graph retained."""
+        out = fn()
+        return cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True),
+                       3, warmup=1)
+
+    tol = {"o": 1e-2, "dq": 2e-2, "dk": 2e-2, "dv": 1e-2, "dbias": 1e-4}
+    rec = {}
+    for stage, B, nW, h in (("stage1", 64, 64, 4), ("stage3", 64, 4, 16)):
+        for shifted in (False, True):
+            case = f"{stage}_{'shifted' if shifted else 'regular'}"
+            q, k, v, bias, regions, do = operands(B, nW, h, shifted, torch.bfloat16)
+            gap, err = gaps(q, k, v, bias, regions, do)
+            check(all(gap[n] < tol[n] for n in gap), f"window attention at {case}: {gap}")
+            b32 = bias.float()
+            _, lse = ca.forward(q, k, v, b32, regions)
+            first = ca.backward(q, k, v, do, b32, regions, lse)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(first, ca.backward(q, k, v, do, b32, regions, lse))),
+                  f"window attention's backward gives other bits on a second call at {case}")
+            calls = {"fwd": lambda: ca.forward(q, k, v, b32, regions),
+                     "bwd": lambda: ca.backward(q, k, v, do, b32, regions, lse)}
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+            lib = library(q, k, v, bias, regions)
+
+            def plain_fwd():
+                return ca.window_attention_plain(*leaves, regions)
+
+            def library_fwd():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(*lib[:3], attn_mask=lib[3])
+
+            lib_grad = library_fwd().detach()
+            plain_ms = {"fwd": cuda_ms(torch, plain_fwd, 3, warmup=1),
+                        "bwd": backward_ms(plain_fwd, leaves, do)}
+            library_ms = {"fwd": cuda_ms(torch, library_fwd, 10),
+                          "bwd": backward_ms(library_fwd, lib, lib_grad)}
+            least = dict(zip(("fwd", "bwd"),
+                             attention_least(B * nW, h, L, d, 2, nW if shifted else 0)))
+            for way, fn in calls.items():
+                name = f"window_attention_{way}"
+                call_ms = cuda_ms(torch, fn, 20)
+                dev_ms = function_device_ms(profile(torch, fn, 10), KERNELS[name]["kernel"], 10)
+                r = dict(ms=call_ms if dev_ms is None else dev_ms, call_ms=call_ms,
+                         kernel_ms="not measured" if dev_ms is None else dev_ms,
+                         plain_ms=plain_ms[way], library_ms=library_ms[way],
+                         bound_ms=least[way][0], bound_by=least[way][1],
+                         max_abs_err=err["o"] if way == "fwd" else
+                         max(err[n] for n in ("dq", "dk", "dv", "dbias")))
+                _say_times(name, r, case=case, Bw=B * nW, heads=h)
+                if case == "stage1_regular":
+                    rec[name] = r
+                rec[f"{case}_{way}"] = r
+            pair = rec[f"{case}_fwd"]["ms"] + rec[f"{case}_bwd"]["ms"]
+            bench_ms = attention.least_seconds(B * nW, h, L, d, 2, nW if shifted else 0) * 1e3
+            own_ms = least["fwd"][0] + least["bwd"][0]
+            say("window_attention", case=case, pair_ms=f"{pair:.6f}",
+                benchmark_least_ms=f"{bench_ms:.6f}", x_benchmark_least=f"{pair / bench_ms:.3f}",
+                own_least_ms=f"{own_ms:.6f}", x_own_least=f"{pair / own_ms:.3f}",
+                **{f"gap_{n}": f"{v:.3g}" for n, v in gap.items()}, deterministic="yes")
+    q, k, v, bias, regions, do = operands(64, 4, 16, True, torch.float32)
+    gap, _ = gaps(q, k, v, bias, regions, do)
+    check(all(x < 1e-5 for x in gap.values()), f"window attention, float32 build: {gap}")
+    fwd32 = cuda_ms(torch, lambda: ca.forward(q, k, v, bias.float(), regions), 5)
+    say("window_attention", case="stage3_shifted_f32", call_ms_forward=f"{fwd32:.6f}",
+        **{f"gap_{n}": f"{v:.3g}" for n, v in gap.items()})
+    return rec["window_attention_fwd"], rec["window_attention_bwd"]
+
+
+def phase_swin_train(torch, seed):
+    """Phase 11c: one Swin-B train step at the cell swin_b384.train's shapes
+    (``benchmark/configs/swin_b384.json``: batch 64, 384 px) after a
+    warm-up step, its launch counters reset right before it. Returns those
+    counters, the path ``swin_train``: 24 forward and 24 backward
+    window-attention launches, one each a block."""
+    import warnings
+
+    from benchmark import common
+    from primia_tpu_torch.config import Arguments
+    from primia_tpu_torch.nn import create_model
+    from primia_tpu_torch.train.optim import make_optimizer
+    from primia_tpu_torch.train.steps import build_train_step
+
+    dev = torch.device("cuda")
+    cfg = common.load_json(common.BENCH_DIR / "configs" / "swin_b384.json")
+    args = Arguments.from_dict(cfg["args"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # no pretrained Swin weights: a random start
+        model = create_model(args, num_classes=cfg["architecture"]["num_classes"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    imgs, labels = common.make_images(g, args.batch_size, args.train_resolution)
+    mean, std = common.mean_std(imgs)
+    step = build_train_step(model, make_optimizer(args, model), args, mean, std, device=dev)
+    mask = torch.ones(args.batch_size)
+    step(g, imgs, labels, mask, args.lr)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    step(g, imgs, labels, mask, args.lr)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"window_attention_fwd": 24, "window_attention_bwd": 24}
+    check(all(launches[n] == c for n, c in want.items()),
+          f"a Swin-B train step launched {launches}, expected {want} window attentions")
+    say("swin_train", batch=args.batch_size, resolution=args.train_resolution,
+        step_seconds=f"{secs:.6f}", launches=json.dumps(launches))
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_ring(torch, seed):
@@ -4950,10 +5200,13 @@ def main(argv=None) -> int:
         rec["conv3x3_wgrad"] = phase_wgrad(torch, opts.seed)
         rec.update(phase_bn(torch, opts.seed))
         rec["gaussian_noise"], noise_launches = phase_noise(torch, opts.seed, sm_max_mhz)
+        rec["window_attention_fwd"], rec["window_attention_bwd"] = phase_window_attention(
+            torch, opts.seed)
+        swin_launches = phase_swin_train(torch, opts.seed)
         phase_ring(torch, opts.seed)
-        lap("dcf_wgrad_bn_noise_ring")
+        lap("dcf_wgrad_bn_noise_attention_swin_ring")
         profile_out = opts.profile_out.resolve()
-        by_path = {"noise": noise_launches,
+        by_path = {"noise": noise_launches, "swin_train": swin_launches,
                    "serve": phase_serve(torch, opts.seed, work, profile_out)}
         lap("serve")
         by_path["encrypt"] = phase_encrypt(torch, opts.seed, work, profile_out)

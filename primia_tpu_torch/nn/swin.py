@@ -14,7 +14,8 @@ qkv bias), with the authors' equations and parameter names:
   relative-position bias ``relative_position_bias_table[index]`` (a table
   of (2 window - 1)^2 x heads, gathered by a ``long`` index), plus, in the
   shifted blocks, the published region mask (-100 between tokens of
-  different regions of the rolled map); softmax, times ``v``, ``proj``;
+  different regions of the rolled map; the block keeps each window's
+  region ids, ``attn_regions``); softmax, times ``v``, ``proj``;
 - odd blocks roll the map by (-shift, -shift) before the window partition
   and back after the reverse, shift = window // 2; a stage whose map is not
   larger than the window attends over the whole map, unshifted;
@@ -30,8 +31,9 @@ Init as the authors': linear weights and the bias tables truncated normal
 (std 0.02), biases zero, layer norms one and zero.
 
 Every window attention goes through :func:`window_attention`, which the
-attention module looks up by name at each call. Under a profiler each
-block's attention half (from ``norm1`` to the residual add) runs in the span
+attention module looks up by name at each call, on the port's kernels on
+the card (``ops/cuda_attention.py``). Under a profiler each block's
+attention half (from ``norm1`` to the residual add) runs in the span
 ``swin.attention`` and its MLP half in ``swin.mlp``; both are forward-only
 (autograd's thread runs the backward), and off the profiler they are the
 shared no-op of ``utils.span``.
@@ -47,13 +49,11 @@ import torch.nn.functional as F
 
 from primia_tpu_torch import utils
 from primia_tpu_torch.nn.core import Conv, Norm
+from primia_tpu_torch.ops import cuda_attention
 
 SWIN_B = {"embed_dim": 128, "depths": (2, 2, 18, 2), "num_heads": (4, 8, 16, 32)}
 PATCH = 4
 MLP_RATIO = 4
-# the logit offset of a pair of tokens from different regions of a shifted
-# window, as published (exp(-100) underflows against the row's own terms)
-MASK_VALUE = -100.0
 
 
 def refuse(model: nn.Module, path: str, missing: str) -> None:
@@ -86,50 +86,41 @@ def window_reverse(x: torch.Tensor, window: int, H: int, W: int) -> torch.Tensor
     return x.reshape(B, H, W, C)
 
 
-def shift_mask(resolution: int, window: int, shift: int) -> torch.Tensor:
-    """(nW, L, L) ``bool``: True where two tokens of a window of the map
-    rolled by (-shift, -shift) come from different regions of the unrolled
-    map (the published three slices a side), the pairs a shifted block
-    masks."""
-    img = torch.zeros(1, resolution, resolution, 1, dtype=torch.long)
+def shift_regions(resolution: int, window: int, shift: int) -> torch.Tensor:
+    """(nW, L) ``int32``: the region of the unrolled map (the published
+    three slices a side, numbered 0..8) that each token of each window of
+    the map rolled by (-shift, -shift) comes from."""
+    img = torch.zeros(1, resolution, resolution, 1, dtype=torch.int32)
     cuts = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
     for i, hs in enumerate(cuts):
         for j, ws in enumerate(cuts):
             img[:, hs, ws, :] = 3 * i + j
-    regions = window_partition(img, window)[0, :, :, 0]
-    return regions[:, None, :] != regions[:, :, None]
+    return window_partition(img, window)[0, :, :, 0].contiguous()
+
+
+def shift_mask(resolution: int, window: int, shift: int) -> torch.Tensor:
+    """(nW, L, L) ``bool``: True where two tokens of a window of the map
+    rolled by (-shift, -shift) come from different regions of the unrolled
+    map (:func:`shift_regions`), the pairs a shifted block masks."""
+    return cuda_attention.region_mask(shift_regions(resolution, window, shift))
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention within windows: ``q``, ``k``, ``v`` (B, nW, h, L, d),
-    contiguous; ``bias`` (h, L, L), the gathered relative-position bias;
-    ``mask`` (nW, L, L) ``bool`` (:func:`shift_mask`) or None. Returns
-    softmax(q k^T / sqrt(d) + bias [+ MASK_VALUE where masked]) v, (B, nW,
-    h, L, d).
+    """Attention within windows: ``q``, ``k``, ``v`` (B, nW, h, L, d), any
+    strides; ``bias`` (h, L, L), the gathered relative-position bias;
+    ``mask`` the windows' (nW, L) region ids (:func:`shift_regions`) or
+    None. Returns softmax(q k^T / sqrt(d) + bias [+ MASK_VALUE where two
+    tokens' regions differ]) v, (B, nW, h, L, d).
 
-    One ``F.scaled_dot_product_attention`` call, whose bias is broadcast
-    over the batch and never expanded to (B nW, h, L, L): unshifted, over
-    (B nW, h) with the bias as (1, h, L, L); shifted, over (B, nW h) with
-    the bias and the mask summed into (1, nW h, L, L). The bias keeps its
-    gradient. On the card PyTorch's memory-efficient backend takes every
-    call (CUTLASS's fused attention, ``fmha_cutlassF`` and ``fmha_cutlassB``):
-    flash attention takes no bias, and the efficient kernel needs the bias's
-    last dimension contiguous, so it is made so here; a bias with another
-    stride would send the call to the math backend, which materialises the
-    logits. Each call counts in ``utils.counters["attention_calls"]`` while a
-    profiler runs."""
+    ``ops/cuda_attention.py:window_attention``: on the card one forward and
+    one backward launch of the port's kernels (bf16 under the train step's
+    autocast, float32 in the eval and predict steps), the bias gradient
+    summed on the card, the output a view of a (B, nW, L, h, d) buffer; on
+    the CPU the explicit softmax. Each call counts in
+    ``utils.counters["attention_calls"]`` while a profiler runs."""
     utils.count("attention_calls")
-    B, nW, h, L, d = q.shape
-    if mask is None:
-        attn, shape = bias.unsqueeze(0), (B * nW, h, L, d)
-    else:
-        attn = (bias.unsqueeze(0) + torch.where(mask.unsqueeze(1), MASK_VALUE, 0.0)
-                ).reshape(1, nW * h, L, L)
-        shape = (B, nW * h, L, d)
-    out = F.scaled_dot_product_attention(q.reshape(shape), k.reshape(shape), v.reshape(shape),
-                                         attn_mask=attn.to(q.dtype).contiguous())
-    return out.reshape(B, nW, h, L, d)
+    return cuda_attention.window_attention(q, k, v, bias, mask)
 
 
 def _linear(cin: int, cout: int, bias: bool = True) -> nn.Linear:
@@ -155,13 +146,14 @@ class WindowAttention(nn.Module):
         self.qkv = _linear(dim, 3 * dim)
         self.proj = _linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, regions: Optional[torch.Tensor]) -> torch.Tensor:
         B, nW, L, C = x.shape
         h = self.heads
-        q, k, v = self.qkv(x).reshape(B, nW, L, 3, h, C // h).permute(
-            3, 0, 1, 4, 2, 5).contiguous().unbind(0)
+        # views of the qkv output, (B, nW, h, L, d): the kernels read them in place
+        q, k, v = (t.transpose(2, 3)
+                   for t in self.qkv(x).reshape(B, nW, L, 3, h, C // h).unbind(3))
         bias = self.relative_position_bias_table[self.relative_position_index].permute(2, 0, 1)
-        o = window_attention(q, k, v, bias, mask)
+        o = window_attention(q, k, v, bias, regions)
         return self.proj(o.transpose(2, 3).reshape(B, nW, L, C))
 
 
@@ -187,7 +179,8 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, heads, window)
         self.norm2 = Norm(dim, "layer")
         self.mlp = Mlp(dim, MLP_RATIO * dim)
-        self.register_buffer("attn_mask", shift_mask(resolution, window, shift) if shift else None,
+        self.register_buffer("attn_regions",
+                             shift_regions(resolution, window, shift) if shift else None,
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -197,7 +190,7 @@ class SwinBlock(nn.Module):
             y = self.norm1(x)
             if s:
                 y = torch.roll(y, (-s, -s), (1, 2))
-            y = window_reverse(self.attn(window_partition(y, w), self.attn_mask), w, H, W)
+            y = window_reverse(self.attn(window_partition(y, w), self.attn_regions), w, H, W)
             if s:
                 y = torch.roll(y, (s, s), (1, 2))
             x = x + y

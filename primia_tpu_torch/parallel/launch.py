@@ -138,11 +138,11 @@ def _resolve(target: str):
 
 
 def _counters():
-    from primia_tpu_torch.ops import (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent,
-                                      cuda_wgrad)
+    from primia_tpu_torch.ops import (cuda_attention, cuda_bn, cuda_clahe, cuda_dcf,
+                                      cuda_kernels, cuda_tent, cuda_wgrad)
 
     return (cuda_clahe.launches, cuda_tent.launches, cuda_dcf.launches, cuda_wgrad.launches,
-            cuda_bn.launches, cuda_kernels.launches)
+            cuda_bn.launches, cuda_kernels.launches, cuda_attention.launches)
 
 
 def reset_launches() -> None:

@@ -26,6 +26,7 @@ from primia_tpu_torch.config import Arguments
 from primia_tpu_torch.nn import create_model, swin
 from primia_tpu_torch.nn.core import Norm, group_norm
 from primia_tpu_torch.nn.jax_params import from_jax_tree, param_leaves
+from primia_tpu_torch.ops import cuda_attention
 from primia_tpu_torch.train import checkpoint as ckpt
 from primia_tpu_torch.train.optim import make_optimizer
 from primia_tpu_torch.train.steps import build_train_step
@@ -146,6 +147,19 @@ def test_window_partition_and_reverse_are_inverse():
     assert torch.equal(swin.window_reverse(w, 3, 12, 12), x)
 
 
+@pytest.mark.parametrize("res,window", [(24, 3), (12, 3), (6, 3), (48, 12), (24, 12)])
+def test_a_shifted_block_registers_the_region_ids_of_its_mask(res, window):
+    """A shifted block keeps its windows' region ids (the kernels' input, not
+    the (nW, L, L) mask); pairs whose ids differ are exactly
+    :func:`shift_mask`'s, which the brute-force labelling above pins."""
+    s = window // 2
+    blk = swin.SwinBlock(32, 1, res, window, s)
+    ids = blk.attn_regions
+    assert ids.dtype == torch.int32 and ids.shape == ((res // window) ** 2, window ** 2)
+    assert torch.equal(ids[:, None, :] != ids[:, :, None], swin.shift_mask(res, window, s))
+    assert swin.SwinBlock(32, 1, res, window, 0).attn_regions is None
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_against_an_explicit_softmax(masked):
     """float64: the call equals softmax(q k^T / sqrt(d) + bias + mask) v
@@ -156,11 +170,12 @@ def test_window_attention_against_an_explicit_softmax(masked):
     q, k, v = (torch.randn(B, nW, h, L, d, generator=g, dtype=torch.float64, requires_grad=True)
                for _ in range(3))
     bias = torch.randn(h, L, L, generator=g, dtype=torch.float64, requires_grad=True)
-    mask = swin.shift_mask(6, 3, 1) if masked else None
-    out = swin.window_attention(q, k, v, bias, mask)
+    regions = swin.shift_regions(6, 3, 1) if masked else None
+    out = swin.window_attention(q, k, v, bias, regions)
     logits = q @ k.transpose(-1, -2) / d ** 0.5 + bias
     if masked:
-        logits = logits + torch.where(mask, swin.MASK_VALUE, 0.0)[None, :, None]
+        mask = swin.shift_mask(6, 3, 1)
+        logits = logits + torch.where(mask, cuda_attention.MASK_VALUE, 0.0)[None, :, None]
     want = torch.softmax(logits, -1) @ v
     torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-12)
     up = torch.randn(out.shape, generator=g, dtype=torch.float64)
@@ -169,6 +184,50 @@ def test_window_attention_against_an_explicit_softmax(masked):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
     assert float(got[3].abs().max()) > 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_on_the_qkv_views_equals_contiguous_copies(masked):
+    """float64: q, k, v as ``WindowAttention.forward`` passes them, strided
+    (B, nW, h, L, d) views of one (B, nW, L, 3C) qkv output, give the call
+    on contiguous copies bit for bit (the same plain arithmetic), forward and
+    the gradients of the qkv output (through the views) and the bias."""
+    B, nW, h, L, d = 2, 4, 3, 9, 32
+    g = torch.Generator().manual_seed(6)
+    qkv = torch.randn(B, nW, L, 3 * h * d, generator=g, dtype=torch.float64, requires_grad=True)
+    bias = torch.randn(h, L, L, generator=g, dtype=torch.float64, requires_grad=True)
+    regions = swin.shift_regions(6, 3, 1) if masked else None
+    views = [t.transpose(2, 3) for t in qkv.reshape(B, nW, L, 3, h, d).unbind(3)]
+    assert not any(t.is_contiguous() for t in views)
+    copies = [t.contiguous() for t in views]
+    out = swin.window_attention(*views, bias, regions)
+    want = swin.window_attention(*copies, bias, regions)
+    assert torch.equal(out, want)
+    up = torch.randn(out.shape, generator=g, dtype=torch.float64)
+    *got, dqkv = torch.autograd.grad((out * up).sum(), (*views, bias, qkv))
+    ref = torch.autograd.grad((want * up).sum(), (*copies, bias))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(dqkv.reshape(B, nW, L, 3, h, d), torch.stack([t.transpose(2, 3)
+                                                                    for t in got[:3]], 3))
+
+
+@pytest.mark.parametrize("what,shape,bias_shape,regions_shape,match", [
+    ("d", (1, 2, 2, 9, 16), (2, 9, 9), None, "head dim 32"),
+    ("L", (1, 1, 2, 169, 32), (2, 169, 169), None, "at most 144 tokens"),
+    ("bias", (1, 2, 2, 9, 32), (2, 9, 8), None, r"bias must be \(2, 9, 9\)"),
+    ("bias heads", (1, 2, 2, 9, 32), (3, 9, 9), None, r"bias must be \(2, 9, 9\)"),
+    ("regions", (1, 2, 2, 9, 32), (2, 9, 9), (2, 8), r"region ids must be \(2, 9\)"),
+])
+def test_window_attention_refuses_what_the_kernels_do_not_take(what, shape, bias_shape,
+                                                               regions_shape, match):
+    """The wrapper's checks hold on every device, the CPU's plain version
+    included: head dim 32, at most 144 tokens a window, an (h, L, L) bias,
+    (nW, L) integer region ids."""
+    q = torch.zeros(shape)
+    regions = None if regions_shape is None else torch.zeros(regions_shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        swin.window_attention(q, q, q, torch.zeros(bias_shape), regions)
 
 
 def test_the_attention_counter_counts_under_a_profiler_only():
