@@ -440,6 +440,7 @@ steps (24 before), phase 16's DP steps 3 after 1 warm-up (6 after 2).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import io
@@ -549,8 +550,6 @@ KERNELS = {
 }
 KERNEL_NAMES = sorted({k for meta in KERNELS.values() for k in meta["kernel"]}, key=len,
                       reverse=True)
-BN_KERNELS = tuple(k for meta in KERNELS.values() if meta["source"].endswith("bn.cu")
-                   for k in meta["kernel"])
 # K4's work (csrc/dcf.cu): a Threefry-2x32-20 block's 20 rotations (funnel
 # shifts) and 20 xors issue only on an SM's 64 INT32 lanes; its adds may
 # also issue on the FMA pipe as IMAD, so they do not raise the least time.
@@ -640,29 +639,15 @@ def device_rows(avgs):
 
 def device_ms_by_category(avgs, iters):
     """Device milliseconds per call of the profiled function, summed over
-    the device-side rows (kernels and copies) by category."""
-    cats = {"warp_kernels": 0.0, "clahe_kernels": 0.0, "wgrad_kernel": 0.0, "bn_kernels": 0.0,
-            "convolution": 0.0, "memcpy": 0.0, "other": 0.0}
+    the device-side rows (kernels and copies) by the benchmark's category
+    (``benchmark/trace.py:category``: the port's kernels k1 ... k8,
+    convolution, memcpy, elementwise)."""
+    from benchmark.trace import category
+
+    cats = collections.defaultdict(float)
     for e in device_rows(avgs):
-        k = e.key
-        if "tent_" in k:
-            cat = "warp_kernels"
-        elif "clahe" in k:
-            cat = "clahe_kernels"
-        # K7 and K8 before the generic match, which would take "*wgrad*"
-        elif "conv3x3_wgrad" in k:
-            cat = "wgrad_kernel"
-        elif any(n in k for n in BN_KERNELS):
-            cat = "bn_kernels"
-        elif any(w in k for w in ("xmma", "cudnn", "conv", "gemm", "Nhwc", "Nchw", "cutlass",
-                                  "wgrad", "dgrad", "fprop", "implicit")):
-            cat = "convolution"
-        elif "Memcpy" in k or "Memset" in k:
-            cat = "memcpy"
-        else:
-            cat = "other"
-        cats[cat] += e.self_device_time_total * 1e-3 / iters
-    return cats
+        cats[category(e.key)] += e.self_device_time_total * 1e-3 / iters
+    return dict(cats)
 
 
 def function_device_ms(avgs, kernel_names, calls):
@@ -682,15 +667,15 @@ def bound(nbytes, nops, peak_ops=PEAK_F32_OPS_PER_S):
 
 
 def reset_launches():
-    from primia_tpu_torch.parallel import launch
+    from primia_tpu_torch.ops import _build
 
-    launch.reset_launches()
+    _build.reset_launches()
 
 
 def read_launches():
-    from primia_tpu_torch.parallel import launch
+    from primia_tpu_torch.ops import _build
 
-    return launch.read_launches()
+    return _build.read_launches()
 
 
 def idle_launches(**nonzero):
@@ -2381,11 +2366,11 @@ def phase_train_optin(torch, seed, work, profile_out, ctx):
     say("train_optin", switched_over_default_p50=f"{p_s / p_d:.4f}",
         switched_step_ms_p50=f"{p_s:.4f}", default_step_ms_p50=f"{p_d:.4f}",
         switched_idle_share=idle_s, default_idle_share=idle_d,
-        k7_device_ms_per_step=f"{cats_s['wgrad_kernel']:.6f}",
-        bn_device_ms_per_step=f"{cats_s['bn_kernels']:.6f}",
+        k7_device_ms_per_step=f"{cats_s.get('k7', 0.0):.6f}",
+        bn_device_ms_per_step=f"{cats_s.get('k8', 0.0):.6f}",
         switched_aten_ops_per_step=f"{ops_s:.1f}", default_aten_ops_per_step=f"{ops_d:.1f}",
         switched_minus_default_device_ms=json.dumps(
-            {k: round(cats_s[k] - cats_d[k], 6) for k in cats_s}))
+            {k: round(cats_s.get(k, 0.0) - cats_d.get(k, 0.0), 6) for k in {**cats_d, **cats_s}}))
 
     # one bfloat16 step, augmentation and mixup off, from the same weights and batch
     args = Arguments.from_ini(ctx["ini"])
@@ -4115,13 +4100,6 @@ def phase_hpo(torch, seed, work, ctx):
     return total
 
 
-def _library_caches():
-    from primia_tpu_torch.ops import (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent,
-                                      cuda_wgrad)
-
-    return [m._lib for m in (cuda_bn, cuda_clahe, cuda_dcf, cuda_kernels, cuda_tent, cuda_wgrad)]
-
-
 def phase_warm(torch, seed, work, ctx):
     """Phase 23: ``python -m primia_tpu_torch.cli.warm`` on the canonical
     train INI and phase 7's data, in process, into a fresh build directory:
@@ -4140,15 +4118,10 @@ def phase_warm(torch, seed, work, ctx):
     fresh = work / "warm_build"
     saved_dir, saved_loaded = _build.BUILD_DIR, dict(_build._loaded)
 
-    def forget():
-        _build._loaded.clear()
-        for cache in _library_caches():
-            cache.cache_clear()
-
     nvcc_path = _build.nvcc_path
     try:
         _build.BUILD_DIR = fresh
-        forget()
+        _build._loaded.clear()
         _, out, secs, _ = run_cli(torch, warm, ["--config", str(CONFIG), "--data_dir",
                                                 str(ctx["root"] / "train")], work,
                                   work / "warm.log")
@@ -4159,7 +4132,7 @@ def phase_warm(torch, seed, work, ctx):
               "2 programs run", f"warm printed {lines}")
         built = {n: _build.library_path(n) for n in _build.source_names()}
         check(all(p.is_file() for p in built.values()), f"warm left {built} unbuilt")
-        forget()
+        _build._loaded.clear()
 
         def barred(*a, **kw):
             raise PhaseError("a library was built again after warm")
@@ -4184,8 +4157,6 @@ def phase_warm(torch, seed, work, ctx):
         _build.BUILD_DIR = saved_dir
         _build._loaded.clear()
         _build._loaded.update(saved_loaded)
-        for cache in _library_caches():
-            cache.cache_clear()
 
 
 def phase_profile(torch, seed, work, profile_out, ctx, card):
@@ -4724,10 +4695,10 @@ def parallel_rank(payload):
 
     # (a) float32, TF32 off
     m, rec, step = fresh(payload["f32_args"], record=True)
-    launch.reset_launches()
+    reset_launches()
     loss = float(step(torch.Generator(device=dev).manual_seed(seed), *batches[0], 1e-4))
     torch.cuda.synchronize()
-    out["f32"] = {"loss": loss, "launches": launch.read_launches(), "stats": _bn_stats(m),
+    out["f32"] = {"loss": loss, "launches": read_launches(), "stats": _bn_stats(m),
                   "fc": {k: v for k, v in rec.grads.items() if k.startswith("fc.")}}
 
     # (b) bf16, timed
@@ -4743,13 +4714,13 @@ def parallel_rank(payload):
     for _ in range(3):
         run()
     torch.cuda.synchronize()
-    launch.reset_launches()
+    reset_launches()
     step_ms, losses = [], []
     for _ in range(DP_TIMED_STEPS):
         t0 = time.perf_counter()
         losses.append(float(run()))
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    timed_launches = launch.read_launches()
+    timed_launches = read_launches()
     avgs = profile(torch, lambda: [run() for _ in range(3)], 1)
     cats = {k: v / 3 for k, v in device_ms_by_category(avgs, 1).items()}
     p50 = float(np.percentile(step_ms, 50))
@@ -4790,11 +4761,11 @@ def parallel_rank(payload):
         try:
             _, _, st = fresh(args)
             gg = torch.Generator(device=dev).manual_seed(seed)
-            launch.reset_launches()
+            reset_launches()
             ls = [float(st(gg, *batches[i % len(batches)], 1e-4))
                   for i in range(DP_SWITCHED_STEPS)]
             torch.cuda.synchronize()
-            return ls, launch.read_launches()
+            return ls, read_launches()
         finally:
             for k in names:
                 os.environ.pop(k)

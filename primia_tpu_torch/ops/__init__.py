@@ -1,2 +1,2 @@
 """Image ops (``image``) and the hand-written CUDA kernels' wrappers
-(``cuda_clahe``), built by ``_build``."""
+(``cuda_*``), built, launched and counted by ``_build``."""

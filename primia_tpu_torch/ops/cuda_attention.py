@@ -21,19 +21,23 @@ buffers, returned as (B, nW, h, L, d) views: the qkv linear's output and
 proj's input need no copy.
 
 A CPU tensor takes the plain version, :func:`window_attention_plain`; a
-CUDA tensor launches the kernels or raises. ``launches`` counts kernel
-calls by direction, one a call each way.
+CUDA tensor launches the kernels or raises. ``_build.launches`` counts
+kernel calls by direction, one a call each way.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
-launches = {"window_attention_fwd": 0, "window_attention_bwd": 0}
+from primia_tpu_torch.ops._build import declare, launch, on_card, sm_count
+
+_i64s = ctypes.POINTER(ctypes.c_longlong)
+_ARGS = [_i64s, _i64s, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+         ctypes.c_int, ctypes.c_int]
+declare("window_attention", {"window_attention_fwd": _ARGS, "window_attention_bwd": _ARGS})
 
 HEAD_DIM = 32
 MAX_TOKENS = 144
@@ -44,28 +48,6 @@ MASK_VALUE = -100.0
 # ptrs and strides of the C launchers: the first seven operands' (b, w, h, l)
 # strides, then the bias's (h, i, j)
 _OPERANDS = ("q", "k", "v", "o", "dq", "dk", "dv")
-
-
-@functools.cache
-def _lib():
-    """``csrc/window_attention.cu``, built on first use, with its C
-    signatures."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("window_attention")
-    i64s = ctypes.POINTER(ctypes.c_longlong)
-    ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    for name in ("window_attention_fwd", "window_attention_bwd"):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [i64s, i64s, ci, ci, ci, ci, cf, ci, ci, vp], ci
-    lib.window_attention_error_string.argtypes = [ci]
-    lib.window_attention_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
@@ -127,10 +109,10 @@ def _rows_buffer(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, nW, L, h, d), dtype=q.dtype, device=q.device).permute(0, 1, 3, 2, 4)
 
 
-def _launch(name: str, nblk: int, tensors: dict, bias: torch.Tensor,
-            regions: Optional[torch.Tensor], lse: torch.Tensor, partial: Optional[torch.Tensor],
-            dbias: Optional[torch.Tensor]) -> None:
-    """Launches ``name`` on PyTorch's current stream, ``nblk`` CTAs a head
+def _launch_args(nblk: int, tensors: dict, bias: torch.Tensor, regions: Optional[torch.Tensor],
+                 lse: torch.Tensor, partial: Optional[torch.Tensor],
+                 dbias: Optional[torch.Tensor]) -> tuple:
+    """A launcher's arguments before the stream, ``nblk`` CTAs a head
     (:func:`_blocks`); ``tensors`` maps the operands' names to their
     tensors."""
     q = tensors["q"]
@@ -142,32 +124,17 @@ def _launch(name: str, nblk: int, tensors: dict, bias: torch.Tensor,
     strides = [s for n in _OPERANDS
                for s in (tensors[n].stride()[:4] if n in tensors else (0, 0, 0, 0))]
     strides += list(bias.stride())
-    lib = _lib()
-    dev = q.device
-    stream = torch._C._cuda_getCurrentRawStream
-    args = ((ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
+    return ((ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
             B, nW, h, L, d ** -0.5, int(q.dtype == torch.float32), nblk)
-    if dev.index == torch.cuda.current_device():
-        err = getattr(lib, name)(*args, stream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = getattr(lib, name)(*args, stream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.window_attention_error_string(err).decode()})")
-    launches[name] += 1
 
 
 def _blocks(q: torch.Tensor) -> int:
     """CTAs a head: one CTA an SM over the heads, at most one a window."""
     B, nW, h = q.shape[:3]
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    return max(1, min(B * nW, _sm_count(dev) // h))
+    return max(1, min(B * nW, sm_count(q.device) // h))
 
 
 def _cuda_operands(q, k, v, bias, regions):
-    if q.device.type != "cuda":
-        raise RuntimeError(f"window attention runs on CPU or CUDA tensors, not {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"window attention on the card takes bfloat16 or float32, got {q.dtype}")
     return (*(_aligned(t) for t in (q, k, v)), bias.float(),
@@ -181,8 +148,9 @@ def forward(q, k, v, bias, regions=None) -> Tuple[torch.Tensor, torch.Tensor]:
     B, nW, h, L, _ = q.shape
     o = _rows_buffer(q)
     lse = torch.empty((B * nW, h, L), dtype=torch.float32, device=q.device)
-    _launch("window_attention_fwd", _blocks(q), {"q": q, "k": k, "v": v, "o": o}, bias, regions,
-            lse, None, None)
+    launch("window_attention", "window_attention_fwd", q.device,
+           *_launch_args(_blocks(q), {"q": q, "k": k, "v": v, "o": o}, bias, regions, lse, None,
+                         None))
     return o, lse
 
 
@@ -195,8 +163,9 @@ def backward(q, k, v, do, bias, regions, lse
     nblk = _blocks(q)
     partial = torch.empty((h, nblk, L, L), dtype=torch.float32, device=q.device)
     dbias = torch.empty((h, L, L), dtype=torch.float32, device=q.device)
-    _launch("window_attention_bwd", nblk, {"q": q, "k": k, "v": v, "o": do, "dq": dq, "dk": dk,
-                                           "dv": dv}, bias, regions, lse, partial, dbias)
+    launch("window_attention", "window_attention_bwd", q.device,
+           *_launch_args(nblk, {"q": q, "k": k, "v": v, "o": do, "dq": dq, "dk": dk, "dv": dv},
+                         bias, regions, lse, partial, dbias))
     return dq, dk, dv, dbias
 
 
@@ -226,6 +195,6 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     None: the plain version on the CPU, the kernels on the card
     (differentiable in q, k, v and the bias either way)."""
     _check(q, k, v, bias, regions)
-    if q.device.type == "cpu":
+    if not on_card(q, "window attention"):
         return window_attention_plain(q, k, v, bias, regions)
     return _WindowAttention.apply(q, k, v, bias, regions)

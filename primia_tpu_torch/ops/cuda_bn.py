@@ -24,8 +24,8 @@ check the layout that arrives, the gradient in the backward included:
 ``channels_last`` first (PyTorch's copy kernel, in a profile).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``launches`` counts kernel launches, one
-per wrapper call that reached the kernel. The plain versions compute in
+it launches the kernel (counted in ``_build.launches``) or raises. The
+plain versions compute in
 ``pallas_bn.py``'s order; on the card the kernels round every step as
 those PyTorch ops do there.
 """
@@ -33,16 +33,21 @@ those PyTorch ops do there.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import Optional, Tuple
 
 import torch
 
+from primia_tpu_torch.ops._build import declare, launch, sm_count
 from primia_tpu_torch.ops.numerics import div
 
-launches = {"bn_sums": 0, "bn_finalize": 0, "bn_apply": 0, "bn_grad_sums": 0,
-            "bn_grad_finalize": 0, "bn_dx": 0}
+_vp, _ci, _ll, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+declare("bn", {"bn_sums": [_vp, _vp, _ll, _ci, _ci],
+               "bn_finalize": [_vp, _ci, _ci, _vp, _vp, _cf, _cf, _vp, _vp, _cf, _cf, _cf, _vp],
+               "bn_apply": [_vp, _vp, _vp, _vp, _ll, _ci, _ci],
+               "bn_grad_sums": [_vp, _vp, _vp, _ll, _ci, _ci],
+               "bn_grad_finalize": [_vp, _ci, _ci, _vp, _vp, _vp, _cf, _vp],
+               "bn_dx": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _ci, _ci]})
 layout_copies = {"bn_sums": 0, "bn_grad_sums": 0}
 
 _THREADS = 256
@@ -85,31 +90,6 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]) if t.dim() == 4 else t
 
 
-@functools.cache
-def _lib():
-    """``csrc/bn.cu``, built on first use, with its C signatures."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("bn")
-    vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    for name, args in (("bn_sums", [vp, vp, ll, ci, ci, vp]),
-                       ("bn_grad_sums", [vp, vp, vp, ll, ci, ci, vp]),
-                       ("bn_finalize", [vp, ci, ci, vp, vp, cf, cf, vp, vp, cf, cf, cf, vp, vp]),
-                       ("bn_grad_finalize", [vp, ci, ci, vp, vp, vp, cf, vp, vp]),
-                       ("bn_apply", [vp, vp, vp, vp, ll, ci, ci, vp]),
-                       ("bn_dx", [vp, vp, vp, vp, vp, vp, ll, ci, ci, vp])):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, ci
-    lib.bn_error_string.argtypes = [ci]
-    lib.bn_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _blocks(rows: int, C: int, device: torch.device, sums: bool) -> int:
     """Blocks for a kernel that walks ``rows`` rows of C channels, an
     unrolled pass of a block covering ``256 / (C/8) * 4`` rows. An
@@ -121,7 +101,7 @@ def _blocks(rows: int, C: int, device: torch.device, sums: bool) -> int:
         raise ValueError(f"the BN kernels take C a multiple of 8, at most {8 * _THREADS}; "
                          f"got {C}")
     passes = -(-rows // ((_THREADS // (C // 8)) * _UNROLL))
-    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    sms = sm_count(device)
     if not sums:
         return max(1, min(passes, sms * _PASS_WAVES))
     waves = max(1, min(_SUMS_WAVES, passes // (sms * _SUMS_PASSES)))
@@ -145,25 +125,6 @@ def _vector(v: torch.Tensor, C: int, what: str) -> None:
                          f"vector, got {tuple(v.shape)} {v.dtype}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launches ``name`` on PyTorch's current stream of ``device``. The
-    raw stream handle costs far less host time than a ``torch.cuda.Stream``
-    object, and the device is switched only where it is not the current
-    one: a batch norm launches six times a step for each of 20 layers."""
-    lib = _lib()
-    fn = getattr(lib, name)
-    stream = torch._C._cuda_getCurrentRawStream
-    if device.index == torch.cuda.current_device():
-        err = fn(*args, stream(device.index))
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, stream(device.index))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.bn_error_string(err).decode()})")
-    launches[name] += 1
-
-
 def _row(t: torch.Tensor, k: int) -> int:
     """The address of row ``k`` of a contiguous (rows, C) float32 tensor."""
     return t.data_ptr() + 4 * k * t.shape[1]
@@ -178,7 +139,8 @@ def _sums(name: str, *ts: torch.Tensor) -> torch.Tensor:
     rows = x.numel() // C
     nblocks = _blocks(rows, C, x.device, sums=True)
     partial = torch.empty((nblocks, 2, C), dtype=torch.float32, device=x.device)
-    _launch(name, x.device, *(t.data_ptr() for t in ts), partial.data_ptr(), rows, C, nblocks)
+    launch("bn", name, x.device, *(t.data_ptr() for t in ts), partial.data_ptr(), rows, C,
+           nblocks)
     return partial
 
 
@@ -188,9 +150,9 @@ def _finalize(partial, gamma, beta, n, eps, running_mean, running_var, momentum)
     rm, rv = ((None, None) if running_mean is None
               else (running_mean.data_ptr(), running_var.data_ptr()))
     m = momentum
-    _launch("bn_finalize", partial.device, partial.data_ptr(), partial.shape[0], C,
-            gamma.data_ptr(), beta.data_ptr(), float(n), eps, rm, rv, 1 - m, m,
-            m * n / max(n - 1, 1), stats.data_ptr())
+    launch("bn", "bn_finalize", partial.device, partial.data_ptr(), partial.shape[0], C,
+           gamma.data_ptr(), beta.data_ptr(), float(n), eps, rm, rv, 1 - m, m,
+           m * n / max(n - 1, 1), stats.data_ptr())
     return stats
 
 
@@ -198,16 +160,16 @@ def _apply(x: torch.Tensor, inv: int, off: int) -> torch.Tensor:
     C = x.shape[1]
     rows = x.numel() // C
     y = torch.empty_like(x)
-    _launch("bn_apply", x.device, x.data_ptr(), inv, off, y.data_ptr(), rows, C,
-            _blocks(rows, C, x.device, sums=False))
+    launch("bn", "bn_apply", x.device, x.data_ptr(), inv, off, y.data_ptr(), rows, C,
+           _blocks(rows, C, x.device, sums=False))
     return y
 
 
 def _grad_finalize(partial, gamma: int, mean: int, r: int, n: int) -> torch.Tensor:
     C = partial.shape[2]
     coef = torch.empty((len(GRAD_COEFS), C), dtype=torch.float32, device=partial.device)
-    _launch("bn_grad_finalize", partial.device, partial.data_ptr(), partial.shape[0], C, gamma,
-            mean, r, float(n), coef.data_ptr())
+    launch("bn", "bn_grad_finalize", partial.device, partial.data_ptr(), partial.shape[0], C,
+           gamma, mean, r, float(n), coef.data_ptr())
     return coef
 
 
@@ -215,8 +177,8 @@ def _dx(g: torch.Tensor, x: torch.Tensor, A: int, B: int, D: int) -> torch.Tenso
     C = x.shape[1]
     rows = x.numel() // C
     dx = torch.empty_like(x)
-    _launch("bn_dx", x.device, g.data_ptr(), x.data_ptr(), A, B, D, dx.data_ptr(), rows, C,
-            _blocks(rows, C, x.device, sums=False))
+    launch("bn", "bn_dx", x.device, g.data_ptr(), x.data_ptr(), A, B, D, dx.data_ptr(), rows,
+           C, _blocks(rows, C, x.device, sums=False))
     return dx
 
 

@@ -17,8 +17,7 @@ note says what each replaces, what bounds it and how it is laid out):
   with ``clahe_channels`` on L.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``launches`` counts kernel launches by
-kernel, one per wrapper call that reached it.
+it launches the kernel (counted in ``_build.launches``) or raises.
 
 Tile geometry: ``T = tiles`` tiles a side, each ``th = ceil(H/T)`` by
 ``tw = ceil(W/T)`` pixels; the last tile row and column are filled with
@@ -34,9 +33,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from primia_tpu_torch.ops._build import declare, launch, load_library, on_card
 from primia_tpu_torch.ops.numerics import div
 
-launches = {"clahe": 0, "clahe_lab": 0}
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64s = ctypes.POINTER(ctypes.c_longlong)
+declare("clahe", {"clahe": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf],
+                  "clahe_lab": [_vp, _vp, _vp, ctypes.POINTER(_cf), _i64s, _i64s, _ci, _ci, _ci,
+                                _ci, _ci, _ci, _cf]},
+        queries={"clahe_lab_consts": [], "clahe_smem_bytes": [_ci] * 5,
+                 "clahe_max_active_clusters": [_ci] * 5})
 
 MAX_TILES = 8  # the kernel runs a cluster of T CTAs a plane; 8 is the portable limit
 MAX_SMEM_BYTES = 232_448  # the dynamic shared memory an H100 CTA can use (227 KB)
@@ -65,38 +71,6 @@ def _check_luts(luts: torch.Tensor, N: int, tiles: int, device) -> None:
                          f"{tuple(luts.shape)} {luts.dtype}")
     if luts.device != device:
         raise ValueError(f"LUTs on {luts.device}, planes on {device}")
-
-
-@functools.cache
-def _lib():
-    """``csrc/clahe.cu``, built on first use, with its C signatures."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("clahe")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    i64s = ctypes.POINTER(ctypes.c_longlong)
-    lib.clahe.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
-    lib.clahe.restype = ci
-    lib.clahe_lab.argtypes = [vp, vp, vp, ctypes.POINTER(cf), i64s, i64s, ci, ci, ci, ci, ci, ci,
-                              cf, vp]
-    lib.clahe_lab.restype = ci
-    lib.clahe_lab_consts.argtypes = []
-    lib.clahe_lab_consts.restype = ci
-    lib.clahe_smem_bytes.argtypes = [ci, ci, ci, ci, ci]
-    lib.clahe_smem_bytes.restype = ci
-    lib.clahe_max_active_clusters.argtypes = [ci, ci, ci, ci, ci]
-    lib.clahe_max_active_clusters.restype = ci
-    lib.clahe_error_string.argtypes = [ci]
-    lib.clahe_error_string.restype = ctypes.c_char_p
-    if lib.clahe_lab_consts() != len(_LAB_CONSTS):
-        raise RuntimeError(f"csrc/clahe.cu takes {lib.clahe_lab_consts()} LAB constants, "
-                           f"lab_constants() gives {len(_LAB_CONSTS)}")
-    return lib
-
-
-def _cuda_device(t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise RuntimeError(f"CLAHE runs on CPU or CUDA tensors, not {t.device}")
 
 
 # ---------------------------------------------------- the plain version
@@ -317,27 +291,24 @@ _LAB_CONSTS = (ctypes.c_float * len(lab_constants()))(*lab_constants())
 # ------------------------------------------------------------ the kernels
 
 def _card_plan(H: int, W: int, tiles: int, lab: bool):
-    """The library and (th, tw) for a launch, or ValueError where no
-    launch fits: more tiles a side than a cluster holds, or a CTA's band,
-    histograms and LUTs past its shared memory."""
+    """(th, tw) for a launch, or ValueError where no launch fits: more
+    tiles a side than a cluster holds, or a CTA's band, histograms and
+    LUTs past its shared memory."""
     if not 1 <= tiles <= MAX_TILES:
         raise ValueError(f"the CLAHE kernels run one CTA a tile row in a thread-block "
                          f"cluster, at most {MAX_TILES} (the portable cluster size): "
                          f"tiles = {tiles}")
     th, tw = tile_geometry(H, W, tiles)
-    lib = _lib()
+    lib = load_library("clahe")
+    if lab and lib.clahe_lab_consts() != len(_LAB_CONSTS):
+        raise RuntimeError(f"csrc/clahe.cu takes {lib.clahe_lab_consts()} LAB constants, "
+                           f"lab_constants() gives {len(_LAB_CONSTS)}")
     smem = lib.clahe_smem_bytes(W, tiles, th, tw, int(lab))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"a {H}x{W} image at {tiles} tiles needs {smem} bytes of shared "
                          f"memory a CTA (its band of {th} rows, histograms and LUTs), over "
                          f"the {MAX_SMEM_BYTES} a CTA can use")
-    return lib, th, tw
-
-
-def _raise_on(lib, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.clahe_error_string(err).decode()})")
+    return th, tw
 
 
 def cluster_plan(H: int, W: int, tiles: int = 8, lab: bool = False) -> dict:
@@ -346,7 +317,7 @@ def cluster_plan(H: int, W: int, tiles: int = 8, lab: bool = False) -> dict:
     dynamic shared memory a CTA and how many clusters the card holds at
     once. Builds the library."""
     th, tw = tile_geometry(H, W, tiles)
-    lib = _lib()
+    lib = load_library("clahe")
     return {"cluster": [tiles, 1, 1], "threads": 256,
             "smem_bytes": lib.clahe_smem_bytes(W, tiles, th, tw, int(lab)),
             "max_active_clusters": lib.clahe_max_active_clusters(W, tiles, th, tw, int(lab))}
@@ -363,24 +334,19 @@ def clahe_planes(planes: torch.Tensor, clip_limit: float = 1.0, tiles: int = 8, 
     N, H, W = planes.shape
     if luts_out is not None:
         _check_luts(luts_out, N, tiles, planes.device)
-    if planes.device.type == "cpu":
+    if not on_card(planes, "CLAHE"):
         luts = clahe_luts_plain(planes, clip_limit, tiles)
         if luts_out is not None:
             luts_out.copy_(luts)
         return div(clahe_apply_plain(planes, luts, tiles), 255.0)
-    _cuda_device(planes)
-    lib, th, tw = _card_plan(H, W, tiles, lab=False)
+    th, tw = _card_plan(H, W, tiles, lab=False)
     if luts_out is not None and not luts_out.is_contiguous():
         raise ValueError("luts_out must be contiguous")
     planes = planes.contiguous()
     out = torch.empty((N, H, W), dtype=torch.float32, device=planes.device)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.clahe(planes.data_ptr(), out.data_ptr(),
-                        None if luts_out is None else luts_out.data_ptr(), N, H, W, tiles,
-                        th, tw, clip_limit_count(clip_limit, th, tw), stream)
-    _raise_on(lib, err, "clahe")
-    launches["clahe"] += 1
+    launch("clahe", "clahe", planes.device, planes.data_ptr(), out.data_ptr(),
+           None if luts_out is None else luts_out.data_ptr(), N, H, W, tiles, th, tw,
+           clip_limit_count(clip_limit, th, tw))
     return out
 
 
@@ -412,17 +378,12 @@ def clahe_rgb(x: torch.Tensor, clip_limit: float = 1.0, tiles: int = 8) -> torch
     if x.dtype != torch.float32 or x.dim() != 4 or x.shape[1] != 3:
         raise ValueError(f"expected (B, 3, H, W) float32 images, got {tuple(x.shape)} "
                          f"{x.dtype}")
-    if x.device.type == "cpu":
+    if not on_card(x, "CLAHE"):
         return clahe_rgb_plain(x, clip_limit, tiles)
-    _cuda_device(x)
     B, _, H, W = x.shape
-    lib, th, tw = _card_plan(H, W, tiles, lab=True)
+    th, tw = _card_plan(H, W, tiles, lab=True)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.clahe_lab(x.data_ptr(), out.data_ptr(), srgb_levels(x.device).data_ptr(),
-                            _LAB_CONSTS, _strides(x), _strides(out), B, H, W, tiles, th, tw,
-                            clip_limit_count(clip_limit, th, tw), stream)
-    _raise_on(lib, err, "clahe_lab")
-    launches["clahe_lab"] += 1
+    launch("clahe", "clahe_lab", x.device, x.data_ptr(), out.data_ptr(),
+           srgb_levels(x.device).data_ptr(), _LAB_CONSTS, _strides(x), _strides(out), B, H, W,
+           tiles, th, tw, clip_limit_count(clip_limit, th, tw))
     return out

@@ -17,21 +17,22 @@ tensors (read as unsigned) -- seeds (2, N, 4), alpha, c, x (N,), c in
     share[0] + share[1] == (1 - 2c) * 1{x < alpha}   (mod 2^64)
 
 over ``n_bits``-bit points. A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches the kernel or raises.
-``launches`` counts the calls that reached the kernel.
+version; given CUDA tensors it launches the kernel (counted in
+``_build.launches``) or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from primia_tpu_torch.mpc.dcf import dcf_eval, dcf_gen_from_seeds
 from primia_tpu_torch.mpc.prg import MASK32
+from primia_tpu_torch.ops._build import declare, launch, on_card
 
-launches = {"dcf_sign": 0}
+_vp = ctypes.c_void_p
+declare("dcf", {"dcf_sign": [_vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_int]})
 
 
 def _check(seeds: torch.Tensor, alpha: torch.Tensor, c: torch.Tensor,
@@ -68,40 +69,17 @@ def dcf_sign_plain(seeds: torch.Tensor, alpha: torch.Tensor, c: torch.Tensor,
     return dcf_eval(party, keys, _words(x).expand(2, N), n_bits)
 
 
-@functools.cache
-def _lib():
-    """``csrc/dcf.cu``, built on first use, with its C signature."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("dcf")
-    vp = ctypes.c_void_p
-    lib.dcf_sign.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
-    lib.dcf_sign.restype = ctypes.c_int
-    lib.dcf_error_string.argtypes = [ctypes.c_int]
-    lib.dcf_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def dcf_sign(seeds: torch.Tensor, alpha: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
              n_bits: int = 31) -> torch.Tensor:
     """(2, N) int64 shares of (1 - 2c) * 1{x < alpha}: the plain version on
     the CPU, the kernel on CUDA."""
     N = _check(seeds, alpha, c, x, n_bits)
-    if alpha.device.type == "cpu":
+    if not on_card(alpha, "dcf_sign"):
         return dcf_sign_plain(seeds, alpha, c, x, n_bits)
-    if alpha.device.type != "cuda":
-        raise RuntimeError(f"dcf_sign runs on CPU or CUDA tensors, not {alpha.device}")
     seeds, alpha, c, x = (t.contiguous() for t in (seeds, alpha, c, x))
     if seeds.data_ptr() % 16:  # the kernel reads a seed as one 16-byte load
         seeds = seeds.clone()
     out = torch.empty((2, N), dtype=torch.int64, device=alpha.device)
-    lib = _lib()
-    with torch.cuda.device(alpha.device):
-        stream = torch.cuda.current_stream(alpha.device).cuda_stream
-        err = lib.dcf_sign(seeds.data_ptr(), alpha.data_ptr(), c.data_ptr(), x.data_ptr(),
-                           out.data_ptr(), N, n_bits, stream)
-    if err != 0:
-        raise RuntimeError(f"dcf_sign launch failed: CUDA error {err} "
-                           f"({lib.dcf_error_string(err).decode()})")
-    launches["dcf_sign"] += 1
+    launch("dcf", "dcf_sign", alpha.device, seeds.data_ptr(), alpha.data_ptr(), c.data_ptr(),
+           x.data_ptr(), out.data_ptr(), N, n_bits)
     return out

@@ -26,10 +26,10 @@ Port of ``primia_tpu/ops/pallas_kernels.py``.
   rounds the image to bf16 for its matmuls.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``launches`` counts K5's launches, one
-per wrapper call that reached the kernel. The launch follows
-:func:`plan_noise`: one wave of the blocks the card holds at once, each
-thread walking (row, group) items in a grid stride.
+it launches the kernel or raises. ``_build.launches`` counts K5's
+launches, not those of its check, :func:`noise_uniforms`. The launch
+follows :func:`plan_noise`: one wave of the blocks the card holds at
+once, each thread walking (row, group) items in a grid stride.
 """
 
 from __future__ import annotations
@@ -42,7 +42,14 @@ from typing import Tuple
 
 import torch
 
-launches = {"gaussian_noise": 0}
+from primia_tpu_torch.ops._build import declare, launch, on_card, query, sm_count
+
+_vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+declare("noise", {"gaussian_noise": [_vp, _vp, _cu, _cu, _ci, _cu, ctypes.c_float, _cu, _cu, _cu,
+                                     _cu],
+                  "gaussian_noise_uniforms": [_vp, _cu, _cu, _cu, _cu, _cu, _cu, _cu]},
+        uncounted=("gaussian_noise_uniforms",),
+        queries={"gaussian_noise_blocks_per_sm": [_ci, _ci]})
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -142,11 +149,8 @@ def plan_noise(rows: int, n: int, blocks_per_sm: int, sms: int) -> NoisePlan:
 
 @functools.lru_cache(maxsize=None)
 def _blocks_per_sm(device_index: int, dtype: int, mode: int) -> int:
-    with torch.cuda.device(device_index):
-        n = _lib().gaussian_noise_blocks_per_sm(dtype, mode)
-    if n <= 0:
-        _raise_on("gaussian_noise_blocks_per_sm", -n)
-    return n
+    return query("noise", "gaussian_noise_blocks_per_sm", torch.device("cuda", device_index),
+                 dtype, mode)
 
 
 def card_plan(device: torch.device, rows: int, n: int, dtype: int = 0,
@@ -155,37 +159,10 @@ def card_plan(device: torch.device, rows: int, n: int, dtype: int = 0,
     kernel's occupancy from the CUDA occupancy API (dtype 0 = float32,
     1 = bfloat16; mode 0 = noise, 1 = uniforms)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return plan_noise(rows, n, _blocks_per_sm(index, dtype, mode), sms)
+    return plan_noise(rows, n, _blocks_per_sm(index, dtype, mode), sm_count(device))
 
 
-def _raise_on(fn: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
-                           f"({_lib().noise_error_string(err).decode()})")
-
-
-@functools.cache
-def _lib():
-    """``csrc/noise.cu``, built on first use, with its C signatures."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("noise")
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.gaussian_noise_blocks_per_sm.argtypes = [ci, ci]
-    lib.gaussian_noise_blocks_per_sm.restype = ci
-    lib.gaussian_noise.argtypes = [vp, vp, cu, cu, ci, cu, ctypes.c_float, cu, cu, cu, cu, vp]
-    lib.gaussian_noise.restype = ci
-    lib.gaussian_noise_uniforms.argtypes = [vp, cu, cu, cu, cu, cu, cu, cu, vp]
-    lib.gaussian_noise_uniforms.restype = ci
-    lib.noise_error_string.argtypes = [ci]
-    lib.noise_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _cuda(x: torch.Tensor, n: int) -> None:
-    if x.device.type != "cuda":
-        raise RuntimeError(f"K5 runs on CPU or CUDA tensors, not {x.device}")
+def _check_rows(x: torch.Tensor, n: int) -> None:
     if x.shape[0] > 65535:
         raise ValueError(f"K5 takes at most 65,535 rows, got {x.shape[0]}")
     if n >= 1 << 31:
@@ -198,20 +175,15 @@ def add_gaussian_noise(x: torch.Tensor, seed: int, sigma: float) -> torch.Tensor
     x: (B, ...) float32 or bfloat16; returns a new tensor of x's shape and
     dtype."""
     B, n = _check_noise(x)
-    if x.device.type == "cpu":
+    if not on_card(x, "K5"):
         return add_gaussian_noise_plain(x, seed, sigma)
-    _cuda(x, n)
+    _check_rows(x, n)
     x = x.contiguous()
     out = torch.empty_like(x)
     dtype = _DTYPES[x.dtype]
     p = card_plan(x.device, B, n, dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().gaussian_noise(x.data_ptr(), out.data_ptr(), B, n, dtype, seed & _MASK,
-                                    float(sigma), p.grid, p.groups, p.step_rows, p.step_groups,
-                                    stream)
-    _raise_on("gaussian_noise", err)
-    launches["gaussian_noise"] += 1
+    launch("noise", "gaussian_noise", x.device, x.data_ptr(), out.data_ptr(), B, n, dtype,
+           seed & _MASK, float(sigma), p.grid, p.groups, p.step_rows, p.step_groups)
     return out
 
 
@@ -221,14 +193,11 @@ def noise_uniforms(x: torch.Tensor, seed: int) -> Tuple[torch.Tensor, torch.Tens
     check against :func:`noise_uniforms_plain`; not a launch of K5's
     path)."""
     B, n = _check_noise(x)
-    if x.device.type == "cpu":
+    if not on_card(x, "K5"):
         return noise_uniforms_plain(B, n, seed, x.device)
-    _cuda(x, n)
+    _check_rows(x, n)
     out = torch.empty((B, n, 2), dtype=torch.float32, device=x.device)
     p = card_plan(x.device, B, n, mode=1)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().gaussian_noise_uniforms(out.data_ptr(), B, n, seed & _MASK, p.grid,
-                                             p.groups, p.step_rows, p.step_groups, stream)
-    _raise_on("gaussian_noise_uniforms", err)
+    launch("noise", "gaussian_noise_uniforms", x.device, out.data_ptr(), B, n, seed & _MASK,
+           p.grid, p.groups, p.step_rows, p.step_groups)
     return out[..., 0], out[..., 1]

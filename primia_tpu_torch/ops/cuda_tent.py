@@ -17,19 +17,21 @@ an image next to each other) and coordinate fields ``(B, Ho, Wo)``,
 shared by the C planes of an image.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``launches`` counts kernel launches,
-one per wrapper call that reached the kernel.
+it launches the kernel (counted in ``_build.launches``) or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
-launches = {"tent_rows": 0, "tent_bilinear": 0}
+from primia_tpu_torch.ops._build import declare, launch, on_card
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+declare("tent", {"tent_rows": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci],
+                 "tent_bilinear": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci]})
 
 
 def _check(planes: torch.Tensor, *coords: torch.Tensor) -> int:
@@ -58,34 +60,6 @@ def _check_rows(planes: torch.Tensor, coords: torch.Tensor, axis: int) -> int:
         raise ValueError(f"field {tuple(coords.shape)} does not match planes "
                          f"{tuple(planes.shape)}")
     return C
-
-
-def _cuda_device(t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise RuntimeError(f"the warp kernels run on CPU or CUDA tensors, not {t.device}")
-
-
-@functools.cache
-def _lib():
-    """``csrc/tent.cu``, built on first use, with its C signatures."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("tent")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.tent_rows.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
-    lib.tent_rows.restype = ci
-    lib.tent_bilinear.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-    lib.tent_bilinear.restype = ci
-    lib.tent_error_string.argtypes = [ci]
-    lib.tent_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} launch failed: CUDA error {err} "
-            f"({lib.tent_error_string(err).decode()})")
 
 
 def _per_plane(t: torch.Tensor, C: int) -> torch.Tensor:
@@ -128,19 +102,13 @@ def tent_rows(planes: torch.Tensor, coords: torch.Tensor, axis: int = 2) -> torc
     planes (B*C, H, W) and coords (B, H, W), float32.
     """
     C = _check_rows(planes, coords, axis)
-    if planes.device.type == "cpu":
+    if not on_card(planes, "tent_rows"):
         return tent_rows_plain(planes, coords, axis)
-    _cuda_device(planes)
     planes, coords = planes.contiguous(), coords.contiguous()
     N, H, W = planes.shape
     out = torch.empty_like(planes)
-    lib = _lib()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.tent_rows(planes.data_ptr(), coords.data_ptr(), out.data_ptr(), N, C, H, W,
-                            int(axis == 1), stream)
-    _raise_on(lib, err, "tent_rows")
-    launches["tent_rows"] += 1
+    launch("tent", "tent_rows", planes.device, planes.data_ptr(), coords.data_ptr(),
+           out.data_ptr(), N, C, H, W, int(axis == 1))
     return out
 
 
@@ -179,18 +147,12 @@ def tent_bilinear(planes: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     same, so a gather ignores it: it is accepted and moot.
     """
     C = _check(planes, ys, xs)
-    if planes.device.type == "cpu":
+    if not on_card(planes, "tent_bilinear"):
         return tent_bilinear_plain(planes, ys, xs)
-    _cuda_device(planes)
     planes, ys, xs = planes.contiguous(), ys.contiguous(), xs.contiguous()
     N, H, W = planes.shape
     Ho, Wo = ys.shape[1:]
     out = torch.empty((N, Ho, Wo), dtype=torch.float32, device=planes.device)
-    lib = _lib()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.tent_bilinear(planes.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-                                out.data_ptr(), N, C, H, W, Ho, Wo, stream)
-    _raise_on(lib, err, "tent_bilinear")
-    launches["tent_bilinear"] += 1
+    launch("tent", "tent_bilinear", planes.device, planes.data_ptr(), ys.data_ptr(),
+           xs.data_ptr(), out.data_ptr(), N, C, H, W, Ho, Wo)
     return out

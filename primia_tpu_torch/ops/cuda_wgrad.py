@@ -14,10 +14,10 @@ NCHW tensors in ``channels_last`` memory, the same bytes; dW is OIHW
 bfloat16 and the sums run in float32.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``launches`` counts kernel launches, one
-per wrapper call that reached the kernel; ``layout_copies`` counts the
-operands the wrapper had to copy into bfloat16 ``channels_last`` first
-(the copy shows in a profile as PyTorch's own copy kernel).
+it launches the kernel (counted in ``_build.launches``) or raises;
+``layout_copies`` counts the operands the wrapper had to copy into
+bfloat16 ``channels_last`` first (the copy shows in a profile as
+PyTorch's own copy kernel).
 """
 
 from __future__ import annotations
@@ -30,7 +30,11 @@ import os
 import torch
 import torch.nn.functional as F
 
-launches = {"conv3x3_wgrad": 0}
+from primia_tpu_torch.ops._build import declare, launch, on_card, query, sm_count
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+declare("wgrad", {"conv3x3_wgrad": [_vp, _vp, _vp, _vp] + [_ci] * 10},
+        queries={"conv3x3_wgrad_blocks_per_sm": [_ci]})
 layout_copies = {"conv3x3_wgrad": 0}
 
 # The kernel's geometry (csrc/wgrad.cu): boxes of 64 channels (one 128-byte
@@ -68,22 +72,6 @@ def _check(x: torch.Tensor, g: torch.Tensor) -> None:
         raise ValueError(f"expected float operands, got {x.dtype} and {g.dtype}")
     if x.device != g.device:
         raise ValueError(f"x on {x.device}, g on {g.device}")
-
-
-@functools.cache
-def _lib():
-    """``csrc/wgrad.cu``, built on first use, with its C signature."""
-    from primia_tpu_torch.ops._build import load_library
-
-    lib = load_library("wgrad")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_wgrad.argtypes = [vp, vp, vp, vp] + [ci] * 10 + [vp]
-    lib.conv3x3_wgrad.restype = ci
-    lib.conv3x3_wgrad_blocks_per_sm.argtypes = [ci]
-    lib.conv3x3_wgrad_blocks_per_sm.restype = ci
-    lib.wgrad_error_string.argtypes = [ci]
-    lib.wgrad_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _bf16_channels_last(t: torch.Tensor) -> torch.Tensor:
@@ -169,18 +157,10 @@ def plan_wgrad(B: int, ci: int, co: int, H: int, W: int, sms: int = _SMS,
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(device_index: int, smem: int) -> int:
-    with torch.cuda.device(device_index):
-        n = _lib().conv3x3_wgrad_blocks_per_sm(smem)
-    if n <= 0:
-        _raise_on(_lib(), -n)
-    return n
-
-
-@functools.lru_cache(maxsize=None)
 def _card_plan(index: int, B: int, ci: int, co: int, H: int, W: int) -> WgradPlan:
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return plan_wgrad(B, ci, co, H, W, sms, lambda smem: _blocks_per_sm(index, smem))
+    device = torch.device("cuda", index)
+    return plan_wgrad(B, ci, co, H, W, sm_count(device),
+                      lambda smem: query("wgrad", "conv3x3_wgrad_blocks_per_sm", device, smem))
 
 
 def card_plan(device: torch.device, B: int, ci: int, co: int, H: int, W: int) -> WgradPlan:
@@ -188,12 +168,6 @@ def card_plan(device: torch.device, B: int, ci: int, co: int, H: int, W: int) ->
     kernel's occupancy from the CUDA occupancy API (planned once a shape)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return _card_plan(index, B, ci, co, H, W)
-
-
-def _raise_on(lib, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad launch failed: CUDA error {err} "
-                           f"({lib.wgrad_error_string(err).decode()})")
 
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -220,10 +194,8 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     package's ``conv3x3_wgrad_pallas`` in NCHW / OIHW. On CUDA, ci and co
     must be multiples of 8; the launch follows :func:`card_plan`."""
     _check(x, g)
-    if x.device.type == "cpu":
+    if not on_card(x, "K7"):
         return conv3x3_wgrad_plain(x, g)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"K7 runs on CPU or CUDA tensors, not {x.device}")
     B, ci, H, W = x.shape
     co = g.shape[1]
     if ci % 8 or co % 8:
@@ -232,14 +204,9 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     plan = card_plan(x.device, B, ci, co, H, W)
     ws = torch.empty((plan.splits, co, ci, 3, 3), dtype=torch.float32, device=x.device)
     dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), B, H,
-                                W, ci, co, plan.wb, plan.hb, plan.splits, plan.per_split,
-                                plan.stages, stream)
-    _raise_on(lib, err)
-    launches["conv3x3_wgrad"] += 1
+    launch("wgrad", "conv3x3_wgrad", x.device, x.data_ptr(), g.data_ptr(), ws.data_ptr(),
+           dw.data_ptr(), B, H, W, ci, co, plan.wb, plan.hb, plan.splits, plan.per_split,
+           plan.stages)
     return dw
 
 

@@ -41,6 +41,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from primia_tpu_torch.ops._build import read_launches, reset_launches
+
 ROOT = Path(__file__).resolve().parents[2]
 _TORCHRUN = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
              "LOCAL_WORLD_SIZE", "GROUP_RANK", "TORCHELASTIC_RUN_ID")
@@ -135,24 +137,6 @@ def _resolve(target: str):
     else:
         m = importlib.import_module(mod)
     return getattr(m, fn)
-
-
-def _counters():
-    from primia_tpu_torch.ops import (cuda_attention, cuda_bn, cuda_clahe, cuda_dcf,
-                                      cuda_kernels, cuda_tent, cuda_wgrad)
-
-    return (cuda_clahe.launches, cuda_tent.launches, cuda_dcf.launches, cuda_wgrad.launches,
-            cuda_bn.launches, cuda_kernels.launches, cuda_attention.launches)
-
-
-def reset_launches() -> None:
-    for counts in _counters():
-        for name in counts:
-            counts[name] = 0
-
-
-def read_launches() -> Dict[str, int]:
-    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def main(argv=None) -> int:

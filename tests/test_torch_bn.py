@@ -24,6 +24,7 @@ from primia_tpu.nn.core import PLAIN
 from primia_tpu.nn.core import batch_norm as jax_batch_norm
 from primia_tpu_torch.nn.core import Norm
 from primia_tpu_torch.ops import cuda_bn
+from primia_tpu_torch.ops._build import read_launches
 
 
 @pytest.fixture(autouse=True)
@@ -94,11 +95,11 @@ def test_sums_take_any_layout_and_rows_on_the_cpu():
     rng = np.random.default_rng(3)
     _, xt = _bf16_pair(rng, (3, 5, 4, 16))
     ref = cuda_bn.channel_sums(xt)
-    before = (dict(cuda_bn.launches), dict(cuda_bn.layout_copies))
+    before = (read_launches(), dict(cuda_bn.layout_copies))
     for other in (xt.contiguous(), xt.permute(0, 2, 3, 1).reshape(-1, 16)):
         for a, b in zip(cuda_bn.channel_sums(other), ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (cuda_bn.launches, cuda_bn.layout_copies) == before
+    assert (read_launches(), cuda_bn.layout_copies) == before
     with pytest.raises(ValueError):
         cuda_bn.channel_sums(xt.float())
     with pytest.raises(ValueError):
@@ -294,7 +295,7 @@ def test_bn_launch_plain_versions_compose_the_previous_ops():
     _, gy = _bf16_pair(rng, (3, 4, 5, 16), 0.1)
     gamma, beta = torch.rand(16) + 0.5, torch.randn(16) * 0.1
     n = x.numel() // 16
-    before = dict(cuda_bn.launches)
+    before = read_launches()
     part = cuda_bn.channel_partials(x)
     assert part.shape == (1, 2, 16)
     stats = cuda_bn.bn_finalize(part, gamma, beta, n, 1e-5)
@@ -318,7 +319,7 @@ def test_bn_launch_plain_versions_compose_the_previous_ops():
     ref = (gamma * r).reshape(1, -1, 1, 1) * (gy.float() - (S1 / n).reshape(1, -1, 1, 1)
                                               - xhat * (dgamma / n).reshape(1, -1, 1, 1))
     torch.testing.assert_close(dx.float(), ref, rtol=0, atol=2.0 ** -7 * float(ref.abs().max()))
-    assert cuda_bn.launches == before
+    assert read_launches() == before
     rm, rv = torch.zeros(16), torch.ones(16)
     cuda_bn.bn_finalize(part, gamma, beta, n, 1e-5, rm, rv, 0.1)
     torch.testing.assert_close(rm, 0.1 * mean)
@@ -338,7 +339,7 @@ def test_sums_blocks_fit_the_rows(shape, blocks, monkeypatch):
     most four) with four unrolled passes a block where the rows allow,
     and the elementwise passes one block a pass, at most 8 an SM; no
     block is left without a row."""
-    monkeypatch.setattr(cuda_bn, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(cuda_bn, "sm_count", lambda device: 132)
     B, C, H, W = shape
     rows = B * H * W
     dev = torch.device("cuda", 0)

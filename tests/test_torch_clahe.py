@@ -20,6 +20,7 @@ from primia_tpu.ops.pallas_clahe import clahe_luts as jax_clahe_luts
 from primia_tpu.ops.pallas_clahe import clahe_pallas as jax_clahe_pallas
 from primia_tpu_torch.ops import cuda_clahe
 from primia_tpu_torch.ops import image as timage
+from primia_tpu_torch.ops._build import read_launches
 from primia_tpu_torch.ops.numerics import div
 
 
@@ -120,10 +121,10 @@ def test_lab_u8_to_rgb_matches_jax():
 
 def test_cpu_tensors_run_the_plain_versions_without_counting():
     p = torch.from_numpy(_u8(np.random.default_rng(6), (3, 40, 40)))
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     luts = torch.full((3, 64, 256), -1.0)
     out = cuda_clahe.clahe_planes(p, luts_out=luts)
-    assert cuda_clahe.launches == before
+    assert read_launches() == before
     torch.testing.assert_close(luts, cuda_clahe.clahe_luts_plain(p), rtol=0, atol=0)
     torch.testing.assert_close(cuda_clahe.clahe_luts(p), luts, rtol=0, atol=0)
     torch.testing.assert_close(out, cuda_clahe.clahe_planes_plain(p), rtol=0, atol=0)
@@ -140,9 +141,9 @@ def test_planes_on_cpu_run_the_plain_composite_without_counting():
     mostly = np.where(rng.random((40, 40)) < 0.9, 77, rng.integers(0, 256, (40, 40)))
     ramp = np.add.outer(np.arange(40), np.arange(40)).astype(np.uint8)
     p = torch.from_numpy(np.stack([flat, mostly.astype(np.uint8), ramp]))
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     out = cuda_clahe.clahe_planes(p)
-    assert cuda_clahe.launches == before
+    assert read_launches() == before
     want = cuda_clahe.clahe_planes_plain(p)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
     assert bool(torch.isfinite(out).all()) and float(out.min()) >= 0 and float(out.max()) <= 1
@@ -217,7 +218,7 @@ def test_clahe_on_three_cpu_channels_equals_the_old_composition(layout, shape):
     ragged one; the 3-channel route counts no launch on the CPU."""
     B, H, W = shape
     x = torch.from_numpy(np.random.default_rng(12).random((B, H, W, 3), dtype=np.float32))
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     if layout == "nhwc":
         got, want = timage.clahe(x), _old_composition(x)
     else:
@@ -226,16 +227,16 @@ def test_clahe_on_three_cpu_channels_equals_the_old_composition(layout, shape):
             v = v.contiguous()
         got = timage.clahe(v, channels_first=True)
         want = _old_composition(v, channels_first=True)
-    assert cuda_clahe.launches == before
+    assert read_launches() == before
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got, want)
 
 
 def test_clahe_rgb_on_cpu_runs_the_plain_version_without_counting():
     x = torch.from_numpy(np.random.default_rng(13).random((2, 3, 40, 48), dtype=np.float32))
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     out = cuda_clahe.clahe_rgb(x, 1.0, 8)
-    assert cuda_clahe.launches == before
+    assert read_launches() == before
     assert torch.equal(out, cuda_clahe.clahe_rgb_plain(x, 1.0, 8))
     assert out.shape == x.shape and out.is_contiguous()
     assert float(out.min()) >= 0 and float(out.max()) <= 1

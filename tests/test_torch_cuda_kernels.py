@@ -14,6 +14,7 @@ import torch
 from primia_tpu_torch.mpc import compare, ring_ops
 from primia_tpu_torch.mpc import shares as S
 from primia_tpu_torch.ops import cuda_clahe, cuda_dcf, cuda_tent
+from primia_tpu_torch.ops._build import read_launches
 from primia_tpu_torch.ops.image import clahe, rgb_to_lab_u8, warp_affine, warp_dense
 
 
@@ -48,12 +49,12 @@ def test_clahe_kernels_match_plain_versions(cuda_device, shape, tiles):
     the byte-wise band load, the pixel-wise apply and tile rows 15 px wide
     (T*tw = 45, so a band row's last word ends past it)."""
     p = _planes(shape, cuda_device)
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     luts = torch.full((shape[0], tiles * tiles, 256), -1.0, device=cuda_device)
     out = cuda_clahe.clahe_planes(p, tiles=tiles, luts_out=luts)
     torch.testing.assert_close(luts, cuda_clahe.clahe_luts_plain(p, tiles=tiles), rtol=0, atol=0)
     torch.testing.assert_close(out, cuda_clahe.clahe_planes_plain(p, tiles=tiles), rtol=0, atol=0)
-    assert cuda_clahe.launches["clahe"] == before["clahe"] + 1
+    assert read_launches()["clahe"] == before["clahe"] + 1
     assert torch.equal(cuda_clahe.clahe_planes(p, tiles=tiles), out)
 
 
@@ -75,10 +76,10 @@ def test_clahe_kernel_on_low_entropy_planes(cuda_device, kind):
 
 @pytest.mark.cuda
 def test_clahe_kernel_raises_past_the_cluster_limit(cuda_device):
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     with pytest.raises(ValueError, match="at most 8"):
         cuda_clahe.clahe_planes(_planes((2, 72, 72), cuda_device), tiles=9)
-    assert cuda_clahe.launches == before
+    assert read_launches() == before
 
 
 @pytest.mark.cuda
@@ -119,11 +120,11 @@ def _check_clahe_rgb(x):
     """The 3-channel kernel against the plain composition on the card: one
     launch of it and none of K3, bit for bit, the input's layout, and the
     same bits on a second call."""
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     out = cuda_clahe.clahe_rgb(x)
     torch.cuda.synchronize()
-    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 1
-    assert cuda_clahe.launches["clahe"] == before["clahe"]
+    assert read_launches()["clahe_lab"] == before["clahe_lab"] + 1
+    assert read_launches()["clahe"] == before["clahe"]
     assert out.stride() == x.stride()
     want = cuda_clahe.clahe_rgb_plain(x)
     d = (out - want).abs()
@@ -164,9 +165,9 @@ def test_clahe_rgb_on_low_entropy_and_grey_images(cuda_device, kind):
 def test_clahe_rgb_at_a_ragged_shape_and_three_tiles(cuda_device):
     """37 x 45 at 3 tiles: tile rows 15 px wide and bands past the last row."""
     x = _rgb((3, 3, 37, 45), "nhwc", cuda_device)
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     out = cuda_clahe.clahe_rgb(x, tiles=3)
-    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 1
+    assert read_launches()["clahe_lab"] == before["clahe_lab"] + 1
     assert torch.equal(out, cuda_clahe.clahe_rgb_plain(x, tiles=3))
 
 
@@ -175,14 +176,14 @@ def test_three_channel_clahe_on_the_card_takes_the_lab_kernel_one_channel_k3(cud
     """``image.clahe`` sends 3 channels to the LAB kernel and 1 channel to
     K3, once a call each."""
     x = _rgb((2, 3, 64, 64), "nchw", cuda_device)
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     clahe(x, channels_first=True)
     clahe(x.permute(0, 2, 3, 1))
-    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 2
-    assert cuda_clahe.launches["clahe"] == before["clahe"]
+    assert read_launches()["clahe_lab"] == before["clahe_lab"] + 2
+    assert read_launches()["clahe"] == before["clahe"]
     clahe(x[:, :1], channels_first=True)
-    assert cuda_clahe.launches["clahe"] == before["clahe"] + 1
-    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 2
+    assert read_launches()["clahe"] == before["clahe"] + 1
+    assert read_launches()["clahe_lab"] == before["clahe_lab"] + 2
 
 
 @pytest.mark.cuda
@@ -208,12 +209,12 @@ def test_a_train_step_on_the_card_launches_the_lab_kernel_once(cuda_device):
     images = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
     labels = rng.integers(0, 3, 4).astype(np.int32)
     gen = torch.Generator(device=cuda_device).manual_seed(17)
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     for _ in range(2):
         loss = step(gen, images, labels, np.ones(4, np.float32), 1e-4)
     assert bool(torch.isfinite(loss).all())
-    assert cuda_clahe.launches["clahe_lab"] == before["clahe_lab"] + 2
-    assert cuda_clahe.launches["clahe"] == before["clahe"]
+    assert read_launches()["clahe_lab"] == before["clahe_lab"] + 2
+    assert read_launches()["clahe"] == before["clahe"]
 
 
 @pytest.mark.cuda
@@ -254,11 +255,11 @@ def test_tent_rows_matches_plain(cuda_device, shape, axis):
     version does."""
     planes, ys, xs = _tent_operands(shape, cuda_device)
     q = ys if axis == 1 else xs
-    before = cuda_tent.launches["tent_rows"]
+    before = read_launches()["tent_rows"]
     got = cuda_tent.tent_rows(planes, q, axis=axis)
     torch.testing.assert_close(got, cuda_tent.tent_rows_plain(planes, q, axis=axis),
                                rtol=0, atol=0)
-    assert cuda_tent.launches["tent_rows"] == before + 1
+    assert read_launches()["tent_rows"] == before + 1
 
 
 # K1 and K2 also at one plane (C = 1), C above a thread's 4 planes, and
@@ -282,11 +283,11 @@ def test_tent_rows_matches_plain_at_ragged_shapes(cuda_device, shape, axis):
 def test_tent_bilinear_matches_plain(cuda_device, shape):
     """Bit for bit, as K1."""
     planes, ys, xs = _tent_operands(shape, cuda_device, far=shape not in TENT_SHAPES)
-    before = cuda_tent.launches["tent_bilinear"]
+    before = read_launches()["tent_bilinear"]
     got = cuda_tent.tent_bilinear(planes, ys, xs, max_dy=4.0)
     torch.testing.assert_close(got, cuda_tent.tent_bilinear_plain(planes, ys, xs),
                                rtol=0, atol=0)
-    assert cuda_tent.launches["tent_bilinear"] == before + 1
+    assert read_launches()["tent_bilinear"] == before + 1
 
 
 @pytest.mark.cuda
@@ -296,14 +297,14 @@ def test_warps_on_the_card_count_their_launches(cuda_device, monkeypatch):
     x = torch.from_numpy(rng.random((2, 3, 40, 40), dtype=np.float32)).to(cuda_device)
     mats = torch.tensor([[[1.0, 0.1, 0.5], [-0.1, 1.0, -0.5]]] * 2, device=cuda_device)
     d = torch.zeros((2, 40, 40), device=cuda_device)
-    before = dict(cuda_tent.launches)
+    before = read_launches()
     warp_affine(x, mats, twopass=True, channels_first=True)
     warp_dense(x, d, d, channels_first=True)
-    assert cuda_tent.launches["tent_rows"] == before["tent_rows"] + 4
+    assert read_launches()["tent_rows"] == before["tent_rows"] + 4
     warp_affine(x, mats, twopass=False, channels_first=True)
     monkeypatch.setenv("PRIMIA_WARP_TWOPASS", "0")
     torch.testing.assert_close(warp_dense(x, d, d, channels_first=True), x, rtol=0, atol=0)
-    assert cuda_tent.launches["tent_bilinear"] == before["tent_bilinear"] + 2
+    assert read_launches()["tent_bilinear"] == before["tent_bilinear"] + 2
 
 
 @pytest.mark.cuda
@@ -341,9 +342,9 @@ def _dcf_operands(n, device, seed=13):
 @pytest.mark.parametrize("n", [300, 802_816, 3_211_264])
 def test_dcf_sign_matches_plain(cuda_device, n):
     seeds, alpha, c, x = _dcf_operands(n, cuda_device)
-    before = cuda_dcf.launches["dcf_sign"]
+    before = read_launches()["dcf_sign"]
     got = cuda_dcf.dcf_sign(seeds, alpha, c, x)
-    assert cuda_dcf.launches["dcf_sign"] == before + 1
+    assert read_launches()["dcf_sign"] == before + 1
     torch.testing.assert_close(got, cuda_dcf.dcf_sign_plain(seeds, alpha, c, x), rtol=0, atol=0)
     a, xv = alpha.long(), x.long()
     want = torch.where(xv < a, 1 - 2 * c.long(), torch.zeros_like(a))
@@ -403,9 +404,9 @@ def test_sign_shares_on_the_card(cuda_device):
     v = torch.randint(-(1 << 30), (1 << 30) + 1, (4, 64, 7, 7), device=cuda_device,
                       generator=gen)
     v.view(-1)[:4] = torch.tensor([0, -1, 1 << 30, -(1 << 30)], device=cuda_device)
-    before = cuda_dcf.launches["dcf_sign"]
+    before = read_launches()["dcf_sign"]
     sign = compare.sign_shares(gen, S.share(gen, v))
-    assert cuda_dcf.launches["dcf_sign"] == before + 1
+    assert read_launches()["dcf_sign"] == before + 1
     torch.testing.assert_close(S.reconstruct(sign), (v < 0).long(), rtol=0, atol=0)
 
 
@@ -422,10 +423,10 @@ def test_securenn_on_the_card(cuda_device, n_bits):
     lim = 1 << (30 if n_bits == 32 else 61)
     v = torch.randint(-lim, lim, (4, 64, 56, 56), device=cuda_device, generator=gen)
     v.view(-1)[:4] = torch.tensor([0, -1, lim - 1, -lim], device=cuda_device)
-    before = dict(cuda_dcf.launches)
+    before = read_launches()
     sign = securenn.sign_shares(gen, S.share(gen, v), n_bits=n_bits)
     torch.testing.assert_close(S.reconstruct(sign), (v < 0).long(), rtol=0, atol=0)
-    assert cuda_dcf.launches == before
+    assert read_launches() == before
     keys = securenn.gen_sign(gen, 4096, n_bits)
     c = S.rand_ring(gen, (4096,)) & (securenn.MASK32 if n_bits == 32 else -1)
     bits = securenn._decompose(c, n_bits - 1)
@@ -490,9 +491,9 @@ def test_conv3x3_wgrad_matches_plain(cuda_device, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     B, ci, co, H, W = shape
     x, g = _bf16_cl((B, ci, H, W), cuda_device, 20), _bf16_cl((B, co, H, W), cuda_device, 21)
-    before = cuda_wgrad.launches["conv3x3_wgrad"]
+    before = read_launches()["conv3x3_wgrad"]
     got = cuda_wgrad.conv3x3_wgrad(x, g)
-    assert cuda_wgrad.launches["conv3x3_wgrad"] == before + 1
+    assert read_launches()["conv3x3_wgrad"] == before + 1
     want = cuda_wgrad.conv3x3_wgrad_plain(x, g)
     assert got.shape == (co, ci, 3, 3) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * float(want.abs().max()))
@@ -556,9 +557,9 @@ def test_conv3x3_s1p1_under_vmap_launches_k7_once_an_example(cuda_device):
     def loss(w, x, t):
         return (cuda_wgrad.conv3x3_s1p1(x, w).float() * t.float()).sum()
 
-    before = cuda_wgrad.launches["conv3x3_wgrad"]
+    before = read_launches()["conv3x3_wgrad"]
     dw = vmap(grad(loss), in_dims=(None, 0, 0))(w, x, t)
-    assert cuda_wgrad.launches["conv3x3_wgrad"] == before + n
+    assert read_launches()["conv3x3_wgrad"] == before + n
     dx = vmap(grad(loss, argnums=1), in_dims=(None, 0, 0))(w, x, t)
     for i in range(n):
         torch.testing.assert_close(dw[i], grad(loss)(w, x[i], t[i]), rtol=0, atol=0)
@@ -581,10 +582,10 @@ def test_bn_sums_match_plain(cuda_device, shape):
     from primia_tpu_torch.ops import cuda_bn
 
     x, g = _bf16_cl(shape, cuda_device, 23, 1.0, 0.5), _bf16_cl(shape, cuda_device, 24, 0.1, 0.05)
-    before = dict(cuda_bn.launches)
+    before = read_launches()
     got = cuda_bn.channel_sums(x) + cuda_bn.grad_channel_sums(g, x)
     sums = ("bn_sums", "bn_grad_sums")
-    assert cuda_bn.launches == {k: v + (k in sums) for k, v in before.items()}
+    assert read_launches() == {k: v + (k in sums) for k, v in before.items()}
     want = cuda_bn.channel_sums_plain(x) + cuda_bn.grad_channel_sums_plain(g, x)
     scale = cuda_bn.channel_sums_plain(x.abs()) + cuda_bn.grad_channel_sums_plain(g.abs(),
                                                                                 x.abs())
@@ -620,7 +621,7 @@ def test_bn_launches_match_plain(cuda_device, shape):
 
     x, gy, gamma, beta, rm, rv = _bn_operands(shape, cuda_device)
     n = x.numel() // shape[1]
-    before = dict(cuda_bn.launches)
+    before = read_launches()
     rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
     part = cuda_bn.channel_partials(x)
     stats = cuda_bn.bn_finalize(part, gamma, beta, n, 1e-5, rm_k, rv_k, 0.1)
@@ -629,7 +630,7 @@ def test_bn_launches_match_plain(cuda_device, shape):
     gpart = cuda_bn.grad_channel_partials(gy, x)
     coef = cuda_bn.bn_grad_finalize(gpart, gamma, mean, r, n)
     dx = cuda_bn.bn_dx(gy, x, *coef[3:])
-    assert cuda_bn.launches == {k: v + 1 for k, v in before.items()}
+    assert read_launches() == {k: v + k.startswith("bn_") for k, v in before.items()}
 
     for got, p in ((stats, part), (coef, gpart)):
         torch.testing.assert_close(got[:2], p.sum(0), rtol=0,
@@ -739,9 +740,9 @@ def test_gaussian_noise_matches_plain(cuda_device, shape, dtype):
     from primia_tpu_torch.ops import cuda_kernels
 
     x = torch.rand(shape, device=cuda_device).to(dtype)
-    before = cuda_kernels.launches["gaussian_noise"]
+    before = read_launches()["gaussian_noise"]
     out = cuda_kernels.add_gaussian_noise(x, 77, 0.1)
-    assert cuda_kernels.launches["gaussian_noise"] == before + 1
+    assert read_launches()["gaussian_noise"] == before + 1
     assert out.shape == x.shape and out.dtype == dtype
     B, n = shape[0], x.numel() // shape[0]
     u = cuda_kernels.noise_uniforms(x, 77)

@@ -22,6 +22,7 @@ from primia_tpu.mpc import prg as jprg
 from primia_tpu.ops.pallas_dcf import dcf_sign_fused
 from primia_tpu_torch.mpc import dcf, prg
 from primia_tpu_torch.ops import cuda_dcf
+from primia_tpu_torch.ops._build import read_launches
 
 N_BITS = 31
 
@@ -128,7 +129,7 @@ def test_dcf_sign_plain_matches_the_pallas_kernel(case):
         c = np.array([0, 1, 0, 1, 0], np.uint32)
     want = _np(dcf_sign_fused(*(jnp.asarray(a, jnp.uint32) for a in (seeds, alpha, c, x)),
                               interpret=True))
-    before = dict(cuda_dcf.launches)
+    before = read_launches()
     got = cuda_dcf.dcf_sign(_i32(seeds), _i32(alpha), _i32(c), _i32(x))
     assert got.dtype == torch.int64 and got.shape == (2, len(x))
     np.testing.assert_array_equal(got.numpy(), want)
@@ -136,7 +137,7 @@ def test_dcf_sign_plain_matches_the_pallas_kernel(case):
         cuda_dcf.dcf_sign_plain(_i32(seeds), _i32(alpha), _i32(c), _i32(x)).numpy(), want)
     expect = np.where(x < alpha, 1 - 2 * c.astype(np.int64), 0)
     np.testing.assert_array_equal(got.sum(0).numpy(), expect)
-    assert cuda_dcf.launches == before  # the CPU runs the plain version
+    assert read_launches() == before  # the CPU runs the plain version
 
 
 def test_dcf_sign_rejects_bad_operands():

@@ -42,7 +42,7 @@ from primia_tpu_torch.mpc.shares import AShare
 from primia_tpu_torch.nn import create_model
 from primia_tpu_torch.nn.jax_params import from_jax_tree
 from primia_tpu_torch.nn.resnet import BasicBlock
-from primia_tpu_torch.ops import cuda_clahe, cuda_dcf
+from primia_tpu_torch.ops._build import read_launches
 from primia_tpu_torch.train.steps import build_predict_step
 
 CANONICAL = (Path(__file__).resolve().parent.parent / "configs" / "torch"
@@ -151,11 +151,11 @@ def test_sign_shares_reconstruct_to_the_sign():
     v.reshape(-1)[:8] = [0, -1, 1, 1 << 30, -(1 << 30), (1 << 30) - 1, -(1 << 30) + 1, -2]
     gen = torch.Generator().manual_seed(7)
     sv = S.share(gen, torch.from_numpy(v))
-    before = dict(cuda_dcf.launches)
+    before = read_launches()
     sign = compare.sign_shares(gen, sv)
     assert sign.shape == v.shape
     np.testing.assert_array_equal(S.reconstruct(sign).numpy(), (v < 0).astype(np.int64))
-    assert cuda_dcf.launches == before  # CPU tensors: the plain version
+    assert read_launches() == before  # CPU tensors: the plain version
 
 
 # ------------------------------------------------------------ engine ops
@@ -385,10 +385,10 @@ def _assert_close_logits(got, want):
 
 def test_encrypted_predict_matches_plain_jax(slice_case):
     c = slice_case
-    before = dict(cuda_clahe.launches)
+    before = read_launches()
     predict = build_encrypted_predict(c["model"], c["args"], *MEAN_STD, "cpu", protocol="fss")
     _assert_close_logits(predict(c["imgs"][:2]).numpy(), c["plain"][:2])
-    assert cuda_clahe.launches == before
+    assert read_launches() == before
 
 
 def test_encrypted_predict_batch_tile(slice_case):

@@ -90,6 +90,62 @@ def test_backend_choice():
     assert multihost.choose_backend("cuda", torch.cuda.device_count() + 1) == "gloo"
 
 
+# ---------------------------------------------------------- launch counts
+
+LAUNCHERS = ("clahe", "clahe_lab", "tent_rows", "tent_bilinear", "dcf_sign", "conv3x3_wgrad",
+             "bn_sums", "bn_finalize", "bn_apply", "bn_grad_sums", "bn_grad_finalize", "bn_dx",
+             "gaussian_noise", "window_attention_fwd", "window_attention_bwd")
+
+
+class _FakeTentLibrary:
+    """Stands in for the loaded ``csrc/tent.cu``: ``tent_rows`` records
+    its arguments and returns ``err``."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def tent_rows(self, *args):
+        self.calls.append(args)
+        return self.err
+
+    def tent_error_string(self, err):
+        return b"an illegal memory access was encountered" if err == 700 else b"unknown"
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_a_launch_raises_on_an_error_and_counts_only_a_zero(err, monkeypatch):
+    """``_build.launch`` passes the device's current raw stream last; a
+    non-zero return raises naming the launcher and the library's error
+    text and counts nothing, a 0 counts one launch."""
+    from primia_tpu_torch.ops import _build
+
+    lib = _FakeTentLibrary(err)
+    monkeypatch.setitem(_build._loaded, "tent", lib)
+    monkeypatch.setitem(_build.launches, "tent_rows", 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 4096 + index,
+                        raising=False)
+    if err:
+        with pytest.raises(RuntimeError, match=r"^tent_rows launch failed: CUDA error 700 "
+                                               r"\(an illegal memory access was encountered\)$"):
+            _build.launch("tent", "tent_rows", torch.device("cuda", 0), 11, 12)
+    else:
+        _build.launch("tent", "tent_rows", torch.device("cuda", 0), 11, 12)
+    assert lib.calls == [(11, 12, 4096)]
+    assert _build.launches["tent_rows"] == (0 if err else 1)
+
+
+def test_reset_launches_leaves_every_launcher_at_zero(monkeypatch):
+    """After ``reset_launches`` the one count lists the 15 launchers of the
+    seven kernel libraries, each at 0."""
+    from primia_tpu_torch.ops import _build
+
+    for name in launch.read_launches():
+        monkeypatch.setitem(_build.launches, name, 3)
+    launch.reset_launches()
+    assert launch.read_launches() == dict.fromkeys(LAUNCHERS, 0)
+
+
 def test_federated_mesh_over_four_ranks():
     """Four ranks, two nodes: a (2, 2) grid of ranks, each rank at its
     (node, data) coordinate, over gloo; ``shard_batch`` over all four
