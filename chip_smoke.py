@@ -146,7 +146,29 @@ Phases, each reported on its own line; any failure exits nonzero:
 11c. swin_train   one Swin-B train step at the cell swin_b384.train's
                   shapes (batch 64, 384 px) after a warm-up step, its
                   launch counters counted from zero: 24 forward and 24
-                  backward window-attention launches, one each a block.
+                  backward window-attention launches, one each a block;
+                  53 forward and 53 backward layer-norm launches (48 block
+                  norms, 3 merge norms, the embedding's and the final
+                  norm); then one more step under the profiler: no roll
+                  and no PyTorch layer-norm kernel among its device
+                  operations, its device ms by category and its largest
+                  kernels.
+11d. swin_norm    Swin's fused layer norms (``ops/cuda_swin_norm.py``): the
+                  kernels' registers and spills (cuobjdump -res-usage); at
+                  Swin-B's stage-1 (64 x 96² x 128, a float32 stream) and
+                  stage-3 (64 x 24² x 512, a bf16 stream) maps, shifted
+                  (window 12, shift 6), norm1 (y bf16 at the block's
+                  window order) and norm2 (the bf16 branch read at that
+                  order, the sum and y in natural order): the sum the same
+                  bits as the plain add, y within one bf16 ulp of the
+                  float64 layer norm (plus 8 float32 ulps of the terms
+                  float32 rounds),
+                  dx and the branch's gradient within
+                  the test file's gaps of the plain version, the same bits
+                  over two backward calls; each direction's device and
+                  call ms beside its least bytes at 3.35 TB/s (stage 1: 6,
+                  12, 14 and 16 bytes an element) and the plain
+                  composition's ms.
 12. ring          the card's byte-limb ring conv (int8 torch._int_mm) against
                   the CPU's native int64 conv, bit for bit, at the stem conv
                   at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
@@ -547,6 +569,18 @@ KERNELS = {
                              "kernel": ("fmha_cutlassB_window_kernel",
                                         "fmha_cutlassB_window_bias_grad_kernel"),
                              "source": "primia_tpu_torch/csrc/window_attention.cu"},
+    # Swin's layer norms replace no TPU kernel either: F.layer_norm with the
+    # roll, window partition and reverse, residual add and casts around it.
+    # Path: one Swin-B train step; the backward's time counts its finalize
+    "swin_norm_fwd": {"replaces": "none: F.layer_norm, roll, window partition, add, cast "
+                                  "(no Swin in JAX)",
+                      "path": "swin_train", "kernel": ("swin_norm_fwd_kernel",),
+                      "source": "primia_tpu_torch/csrc/swin_norm.cu"},
+    "swin_norm_bwd": {"replaces": "none: F.layer_norm, roll, window partition, add, cast "
+                                  "(no Swin in JAX)",
+                      "path": "swin_train",
+                      "kernel": ("swin_norm_bwd_kernel", "swin_norm_finalize_kernel"),
+                      "source": "primia_tpu_torch/csrc/swin_norm.cu"},
 }
 KERNEL_NAMES = sorted({k for meta in KERNELS.values() for k in meta["kernel"]}, key=len,
                       reverse=True)
@@ -695,7 +729,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    for name in ("clahe", "tent", "dcf", "wgrad", "bn", "noise", "window_attention"):
+    for name in ("clahe", "tent", "dcf", "wgrad", "bn", "noise", "window_attention", "swin_norm"):
         check(name in libs and libs[name].is_file(), f"{name}.cu did not build")
     say("build", seconds=f"{secs:.3f}", libraries=",".join(sorted(libs)))
 
@@ -1673,7 +1707,10 @@ def phase_swin_train(torch, seed):
     (``benchmark/configs/swin_b384.json``: batch 64, 384 px) after a
     warm-up step, its launch counters reset right before it. Returns those
     counters, the path ``swin_train``: 24 forward and 24 backward
-    window-attention launches, one each a block."""
+    window-attention launches, one each a block, and 53 forward and 53
+    backward layer-norm launches. Then one more step under the profiler:
+    no roll and no PyTorch layer-norm kernel among its device operations;
+    its device ms by category and its 16 largest kernels."""
     import warnings
 
     from benchmark import common
@@ -1701,14 +1738,143 @@ def phase_swin_train(torch, seed):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
-    want = {"window_attention_fwd": 24, "window_attention_bwd": 24}
+    want = {"window_attention_fwd": 24, "window_attention_bwd": 24, "swin_norm_fwd": 53,
+            "swin_norm_bwd": 53}
     check(all(launches[n] == c for n, c in want.items()),
-          f"a Swin-B train step launched {launches}, expected {want} window attentions")
+          f"a Swin-B train step launched {launches}, expected {want}")
     say("swin_train", batch=args.batch_size, resolution=args.train_resolution,
         step_seconds=f"{secs:.6f}", launches=json.dumps(launches))
+    avgs = profile(torch, lambda: step(g, imgs, labels, mask, args.lr), 1)
+    rows = device_rows(avgs)
+    banned = [e.key for e in rows
+              if any(t in e.key for t in ("roll_cuda_kernel", "layer_norm", "LayerNorm",
+                                          "GammaBeta"))]
+    check(not banned, f"a Swin-B train step still launches {banned}")
+    norms = [e for e in rows if "swin_norm_" in e.key]
+    say("swin_train", device_ms=f"{sum(e.self_device_time_total for e in rows) * 1e-3:.3f}",
+        operations=sum(e.count for e in rows),
+        swin_norm_ms=f"{sum(e.self_device_time_total for e in norms) * 1e-3:.3f}",
+        swin_norm_launches=sum(e.count for e in norms),
+        **{k: f"{v:.3f}" for k, v in sorted(device_ms_by_category(avgs, 1).items())})
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
+        say("swin_train", kernel=e.key[:90].replace(" ", ""), count=e.count,
+            device_ms=f"{e.self_device_time_total * 1e-3:.3f}")
     del model, step
     torch.cuda.empty_cache()
     return launches
+
+
+SWIN_NORM_EPS = 1e-5
+
+
+def phase_swin_norm(torch, seed):
+    """Phase 11d: Swin's fused layer norms on the port's kernels
+    (``ops/cuda_swin_norm.py``, ``csrc/swin_norm.cu``): each kernel's
+    registers and spills (cuobjdump); then at Swin-B's stage-1 map (64 x
+    96² x 128, the train step's float32 stream) and stage-3 map (64 x 24² x
+    512, its bf16 stream), the shifted order (12, 6): norm1 (no branch, y
+    bf16 at the order) and norm2 (the bf16 branch at the order, the sum and
+    y natural). Checks the sum's bits against the plain add, y within one
+    bf16 ulp of the float64 layer norm plus 8 float32 ulps of the terms
+    float32 rounds, (|s| + |mean|) rstd |gamma| + |beta| (PyTorch's float32
+    layer norm is itself off by more; its reading is printed beside), dx and the branch's gradient within
+    4e-3 (bf16) or 1e-5 (float32) of the plain version's norm, and the same
+    bits over two backward calls. Each direction's device ms (profiler,
+    every kernel the call launches) and call ms (CUDA events) beside its
+    least bytes at 3.35 TB/s (each operand read once, each output written
+    once: at stage 1, 6 and 12 bytes an element forward, 14 and 16
+    backward) and the plain composition's ms (a yardstick the port no
+    longer runs). Returns the records of ``swin_norm_fwd`` and ``_bwd`` at
+    the stage-1 norm1 call."""
+    from primia_tpu_torch.ops import cuda_swin_norm as csn
+
+    usage = resource_usage("swin_norm", mangled=True)
+    for mangled, res in sorted((usage or {}).items()):
+        say("swin_norm", kernel=mangled,
+            **{k.lower(): res[k] for k in ("REG", "STACK", "LOCAL", "SHARED") if k in res})
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, order, bf = 64, (12, 6), torch.bfloat16
+    rec = {}
+    for stage, side, C, stream in (("stage1", 96, 128, torch.float32),
+                                   ("stage3", 24, 512, torch.bfloat16)):
+        x = (torch.randn((B, side, side, C), generator=g, device=dev) * 2 + 0.5).to(stream)
+        br = torch.randn((B, (side // 12) ** 2, 144, C), generator=g, device=dev).to(bf)
+        w = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+        b = 0.1 * torch.randn(C, generator=g, device=dev)
+        for call in ("norm1", "norm2"):
+            case = f"{stage}_{call}"
+            branch = br if call == "norm2" else None
+            bo, oo = (order, None) if branch is not None else (None, order)
+            kw = dict(branch=branch, branch_order=bo, out_order=oo, out_dtype=bf)
+            y, s, stats = csn.forward(x, w, b, SWIN_NORM_EPS, branch, bo, oo, bf)
+            saved = x if s is None else s
+            dy = torch.randn(y.shape, generator=g, device=dev).to(bf)
+            ds = torch.randn(saved.shape, generator=g, device=dev).to(saved.dtype)
+            bdt = None if branch is None else branch.dtype
+            got = csn.backward(dy, ds, saved, stats, w, x.dtype, bdt, bo, oo)
+            check(all(torch.equal(p, q) for p, q in zip(
+                got, csn.backward(dy, ds, saved, stats, w, x.dtype, bdt, bo, oo))
+                if p is not None), f"swin_norm's backward gives other bits twice at {case}")
+            leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+            pbr = None if branch is None else branch.detach().requires_grad_()
+            ps, py = csn.add_norm_plain(*leaves, SWIN_NORM_EPS, **dict(kw, branch=pbr))
+            wrt = leaves + ([] if pbr is None else [pbr])
+            pgrads = torch.autograd.grad((ps, py), wrt, (ds, dy), retain_graph=True)
+            if s is not None:
+                check(torch.equal(s, ps), f"swin_norm's sum differs from the plain add at {case}")
+            # y against the float64 layer norm: one bf16 ulp, plus 8 float32 ulps
+            # of the terms float32 rounds, (|s| + |mean|) rstd |gamma| + |beta|
+            # (tests/test_torch_swin_norm.py:_y_reference; PyTorch's float32
+            # layer norm is itself off by more)
+            s64 = ps.detach().double()
+            mean = s64.mean(-1, keepdim=True)
+            rstd = (s64.var(-1, unbiased=False, keepdim=True) + SWIN_NORM_EPS).rsqrt()
+            y64 = csn.to_order((s64 - mean) * rstd * w.double() + b.double(), oo)
+            terms = (s64.abs() + mean.abs()) * rstd * w.double().abs() + b.double().abs()
+            tol = _bf16_ulp(torch, y64) + 2.0 ** -21 * csn.to_order(terms, oo)
+            ulps = float(((y.double() - y64).abs() / tol).max())
+            plain_ulps = float(((py.detach().double() - y64).abs() / tol).max())
+            check(ulps <= 1.0, f"swin_norm's y is {ulps} of its tolerance off at {case}")
+            del s64, mean, rstd, y64, terms, tol
+            gaps = {"dx": (got[0], pgrads[0])}
+            if pbr is not None:
+                gaps["dbranch"] = (got[1], pgrads[3])
+            gaps = {n: float((a.double() - r.double()).norm() / r.double().norm())
+                    for n, (a, r) in gaps.items()}
+            for n, (a, r) in (("dgamma", (got[2], pgrads[1])), ("dbeta", (got[3], pgrads[2]))):
+                gaps[n] = float((a.double() - r.double()).norm() / r.double().norm())
+            tol = {"dx": 4e-3 if x.dtype == bf else 1e-5, "dbranch": 4e-3, "dgamma": 1e-5,
+                   "dbeta": 1e-5}
+            check(all(gaps[n] < tol[n] for n in gaps), f"swin_norm at {case}: {gaps}")
+            n_el, isz = x.numel(), (lambda t: t.element_size())
+            fwd_b = isz(x) + isz(y) + (0 if s is None else isz(branch) + isz(s))
+            bwd_b = isz(dy) + isz(saved) + isz(ds) + isz(got[0]) + (
+                0 if got[1] is None else isz(got[1]))
+            plain_fwd = lambda: csn.add_norm_plain(x, w, b, SWIN_NORM_EPS, **kw)  # noqa: E731
+
+            def plain_bwd():
+                return torch.autograd.grad((ps, py), wrt, (ds, dy), retain_graph=True)
+
+            calls = {"fwd": (lambda: csn.forward(x, w, b, SWIN_NORM_EPS, branch, bo, oo, bf),
+                             plain_fwd, fwd_b, ulps),
+                     "bwd": (lambda: csn.backward(dy, ds, saved, stats, w, x.dtype, bdt, bo, oo),
+                             plain_bwd, bwd_b, max(gaps.values()))}
+            for way, (fn, plain, per_el, err) in calls.items():
+                name = f"swin_norm_{way}"
+                call_ms = cuda_ms(torch, fn, 20)
+                dev_ms = function_device_ms(profile(torch, fn, 10), KERNELS[name]["kernel"], 10)
+                bound_ms, bound_by = bound(per_el * n_el, 0)
+                r = dict(ms=call_ms if dev_ms is None else dev_ms, call_ms=call_ms,
+                         kernel_ms="not measured" if dev_ms is None else dev_ms,
+                         plain_ms=cuda_ms(torch, plain, 5, warmup=1), library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                _say_times(name, r, case=case, bytes_per_element=per_el)
+                rec[f"{case}_{way}"] = r
+            say("swin_norm", case=case, deterministic="yes", y_of_tolerance=f"{ulps:.3f}",
+                plain_y_of_tolerance=f"{plain_ulps:.3f}",
+                **{f"gap_{n}": f"{v:.3g}" for n, v in gaps.items()})
+    return rec["stage1_norm1_fwd"], rec["stage1_norm1_bwd"]
 
 
 def phase_ring(torch, seed):
@@ -5174,6 +5340,7 @@ def main(argv=None) -> int:
         rec["window_attention_fwd"], rec["window_attention_bwd"] = phase_window_attention(
             torch, opts.seed)
         swin_launches = phase_swin_train(torch, opts.seed)
+        rec["swin_norm_fwd"], rec["swin_norm_bwd"] = phase_swin_norm(torch, opts.seed)
         phase_ring(torch, opts.seed)
         lap("dcf_wgrad_bn_noise_attention_swin_ring")
         profile_out = opts.profile_out.resolve()

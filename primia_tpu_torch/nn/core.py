@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from primia_tpu_torch.ops.cuda_bn import bn_train, use_pallas_bn
+from primia_tpu_torch.ops.cuda_swin_norm import add_norm
 from primia_tpu_torch.ops.cuda_wgrad import conv3x3_s1p1, use_pallas_wgrad
 
 
@@ -153,8 +154,12 @@ class Norm(nn.Module):
     norm (``kind="layer"``). Batch and group norm keep the same weights and
     BN-shaped buffers, so checkpoints are layout-identical, as in the JAX
     package. Layer norm (the Swin Transformer's, ``nn/swin.py``) normalises
-    the last dimension, ``F.layer_norm`` with float32 statistics (autocast
-    runs it in float32), and has no running-statistics buffers.
+    the last dimension in float32 and has no running-statistics buffers:
+    ``ops/cuda_swin_norm.py:add_norm`` (``F.layer_norm`` on the CPU, one
+    kernel launch a direction on the card), whose keywords ``forward``
+    passes on (a residual branch to add first, the row orders of the branch
+    and of the output, the output's dtype: float32 unless given); it
+    returns the residual stream after the add and the normalised rows.
 
     Train-mode batch norm follows ``primia_tpu/nn/core.py:batch_norm``
     (train=True): float32 batch statistics over (N, H, W), the biased
@@ -187,9 +192,12 @@ class Norm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **fused):
+        """The normalised x, or for a layer norm the pair (residual stream,
+        normalised rows) of :func:`add_norm`."""
         if self.kind == "layer":
-            return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, self.eps)
+            fused.setdefault("out_dtype", torch.float32)
+            return add_norm(x, self.weight, self.bias, self.eps, **fused)
         if self.kind == "group":
             return group_norm(x, self.weight, self.bias, self.groups, self.eps)
         if self.training:

@@ -18,7 +18,16 @@ qkv bias), with the authors' equations and parameter names:
   region ids, ``attn_regions``); softmax, times ``v``, ``proj``;
 - odd blocks roll the map by (-shift, -shift) before the window partition
   and back after the reverse, shift = window // 2; a stage whose map is not
-  larger than the window attends over the whole map, unshifted;
+  larger than the window attends over the whole map, unshifted. The roll,
+  the partition and their inverses move whole tokens: ``norm1`` writes its
+  rows straight into their window slot (the block's order), and ``norm2``
+  reads the attention branch from its slot, adds it to the residual stream
+  and normalises the sum; each passes the residual stream on, so its
+  backward adds the stream's gradient in; all through
+  ``ops/cuda_swin_norm.py:add_norm`` (``Norm(kind="layer")``), one kernel
+  launch a direction on the card. Each layer norm's output takes the dtype
+  of the op that reads it: autocast's for a linear layer under autocast,
+  float32 for the residual stream and the head;
 - patch merging after stages 1-3: the authors' concatenation x0, x1, x2,
   x3 of the four 2x2 neighbours, layer norm, a linear layer 4C -> 2C with
   no bias;
@@ -33,8 +42,9 @@ Init as the authors': linear weights and the bias tables truncated normal
 Every window attention goes through :func:`window_attention`, which the
 attention module looks up by name at each call, on the port's kernels on
 the card (``ops/cuda_attention.py``). Under a profiler each block's
-attention half (from ``norm1`` to the residual add) runs in the span
-``swin.attention`` and its MLP half in ``swin.mlp``; both are forward-only
+attention half (from ``norm1`` to ``proj``) runs in the span
+``swin.attention`` and its MLP half (from the residual add fused into
+``norm2`` to the MLP's residual add) in ``swin.mlp``; both are forward-only
 (autograd's thread runs the backward), and off the profiler they are the
 shared no-op of ``utils.span``.
 """
@@ -50,6 +60,7 @@ import torch.nn.functional as F
 from primia_tpu_torch import utils
 from primia_tpu_torch.nn.core import Conv, Norm
 from primia_tpu_torch.ops import cuda_attention
+from primia_tpu_torch.ops.cuda_swin_norm import window_partition
 
 SWIN_B = {"embed_dim": 128, "depths": (2, 2, 18, 2), "num_heads": (4, 8, 16, 32)}
 PATCH = 4
@@ -70,20 +81,6 @@ def relative_position_index(window: int) -> torch.Tensor:
     coords = torch.stack([ys.flatten(), xs.flatten()])
     rel = coords[:, :, None] - coords[:, None, :] + (window - 1)
     return rel[0] * (2 * window - 1) + rel[1]
-
-
-def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B, nW, window^2, C), windows in row-major order."""
-    B, H, W, C = x.shape
-    x = x.reshape(B, H // window, window, W // window, window, C).transpose(2, 3)
-    return x.reshape(B, (H // window) * (W // window), window * window, C)
-
-
-def window_reverse(x: torch.Tensor, window: int, H: int, W: int) -> torch.Tensor:
-    """The inverse of :func:`window_partition`."""
-    B, _, _, C = x.shape
-    x = x.reshape(B, H // window, W // window, window, window, C).transpose(2, 3)
-    return x.reshape(B, H, W, C)
 
 
 def shift_regions(resolution: int, window: int, shift: int) -> torch.Tensor:
@@ -121,6 +118,14 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: to
     ``utils.counters["attention_calls"]`` while a profiler runs."""
     utils.count("attention_calls")
     return cuda_attention.window_attention(q, k, v, bias, mask)
+
+
+def linear_input_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a linear layer reads ``x`` in: autocast's where autocast is
+    on for ``x``'s device, else float32."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return torch.float32
 
 
 def _linear(cin: int, cout: int, bias: bool = True) -> nn.Linear:
@@ -184,18 +189,13 @@ class SwinBlock(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _, H, W, _ = x.shape
-        w, s = self.window, self.shift
+        order, dtype = (self.window, self.shift), linear_input_dtype(x)
         with utils.span("swin.attention", x.device):
-            y = self.norm1(x)
-            if s:
-                y = torch.roll(y, (-s, -s), (1, 2))
-            y = window_reverse(self.attn(window_partition(y, w), self.attn_regions), w, H, W)
-            if s:
-                y = torch.roll(y, (s, s), (1, 2))
-            x = x + y
+            x, y = self.norm1(x, out_order=order, out_dtype=dtype)
+            y = self.attn(y, self.attn_regions)
         with utils.span("swin.mlp", x.device):
-            x = x + self.mlp(self.norm2(x))
+            x, y = self.norm2(x, branch=y, branch_order=order, out_dtype=dtype)
+            x = x + self.mlp(y)
         return x
 
 
@@ -212,7 +212,7 @@ class PatchMerging(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
                       -1)
-        return self.reduction(self.norm(x))
+        return self.reduction(self.norm(x, out_dtype=linear_input_dtype(x))[1])
 
 
 class Stage(nn.Module):
@@ -237,7 +237,7 @@ class PatchEmbed(nn.Module):
         self.norm = Norm(dim, "layer")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.proj(x).permute(0, 2, 3, 1))
+        return self.norm(self.proj(x).permute(0, 2, 3, 1))[1]
 
 
 class SwinTransformer(nn.Module):
@@ -276,7 +276,7 @@ class SwinTransformer(nn.Module):
         x = self.patch_embed(x)
         for stage in self.layers:
             x = stage(x)
-        return self.head(self.norm(x).mean((1, 2)))
+        return self.head(self.norm(x)[1].mean((1, 2)))
 
 
 def swin_b(**kw) -> SwinTransformer:

@@ -42,7 +42,7 @@ NVCC_TIMEOUT_S = 600
 # the kernel wrappers, one a library: read_launches imports them so that
 # every launcher is declared
 WRAPPERS = ("cuda_clahe", "cuda_tent", "cuda_dcf", "cuda_wgrad", "cuda_bn", "cuda_kernels",
-            "cuda_attention")
+            "cuda_attention", "cuda_swin_norm")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -94,7 +94,8 @@ def test_backend_choice():
 
 LAUNCHERS = ("clahe", "clahe_lab", "tent_rows", "tent_bilinear", "dcf_sign", "conv3x3_wgrad",
              "bn_sums", "bn_finalize", "bn_apply", "bn_grad_sums", "bn_grad_finalize", "bn_dx",
-             "gaussian_noise", "window_attention_fwd", "window_attention_bwd")
+             "gaussian_noise", "window_attention_fwd", "window_attention_bwd", "swin_norm_fwd",
+             "swin_norm_bwd")
 
 
 class _FakeTentLibrary:
@@ -136,8 +137,8 @@ def test_a_launch_raises_on_an_error_and_counts_only_a_zero(err, monkeypatch):
 
 
 def test_reset_launches_leaves_every_launcher_at_zero(monkeypatch):
-    """After ``reset_launches`` the one count lists the 15 launchers of the
-    seven kernel libraries, each at 0."""
+    """After ``reset_launches`` the one count lists the 17 launchers of the
+    eight kernel libraries, each at 0."""
     from primia_tpu_torch.ops import _build
 
     for name in launch.read_launches():

@@ -26,7 +26,7 @@ from primia_tpu_torch.config import Arguments
 from primia_tpu_torch.nn import create_model, swin
 from primia_tpu_torch.nn.core import Norm, group_norm
 from primia_tpu_torch.nn.jax_params import from_jax_tree, param_leaves
-from primia_tpu_torch.ops import cuda_attention
+from primia_tpu_torch.ops import cuda_attention, cuda_swin_norm
 from primia_tpu_torch.train import checkpoint as ckpt
 from primia_tpu_torch.train.optim import make_optimizer
 from primia_tpu_torch.train.steps import build_train_step
@@ -66,17 +66,20 @@ def _images(n, seed=4, res=RES):
 # ------------------------------------------------------------------ norms
 
 def test_layer_norm_is_f_layer_norm_and_has_no_state():
+    """A layer norm returns the residual stream (x itself, with no branch to
+    add) and ``F.layer_norm`` of it, float32 unless asked otherwise."""
     n = Norm(24, "layer")
     with torch.no_grad():
         n.weight.normal_()
         n.bias.normal_()
     x = torch.randn(2, 5, 7, 24)
     # the same call: equal bits
-    assert torch.equal(n(x), F.layer_norm(x, (24,), n.weight, n.bias, 1e-5))
+    s, y = n(x)
+    assert s is x and torch.equal(y, F.layer_norm(x, (24,), n.weight, n.bias, 1e-5))
     assert dict(n.named_buffers()) == {}
     assert set(dict(n.named_parameters())) == {"weight", "bias"}
     n.train()
-    assert torch.equal(n(x), F.layer_norm(x, (24,), n.weight, n.bias, 1e-5))
+    assert torch.equal(n(x)[1], F.layer_norm(x, (24,), n.weight, n.bias, 1e-5))
 
 
 def test_batch_and_group_norm_are_unchanged():
@@ -144,7 +147,7 @@ def test_window_partition_and_reverse_are_inverse():
     assert w.shape == (2, 16, 9, 5)
     # window 5 (row 1, column 1) holds tokens (3..5) x (3..5), row-major
     assert torch.equal(w[1, 5], x[1, 3:6, 3:6].reshape(9, 5))
-    assert torch.equal(swin.window_reverse(w, 3, 12, 12), x)
+    assert torch.equal(cuda_swin_norm.window_reverse(w, 3, 12, 12), x)
 
 
 @pytest.mark.parametrize("res,window", [(24, 3), (12, 3), (6, 3), (48, 12), (24, 12)])
