@@ -169,6 +169,16 @@ Phases, each reported on its own line; any failure exits nonzero:
                   call ms beside its least bytes at 3.35 TB/s (stage 1: 6,
                   12, 14 and 16 bytes an element) and the plain
                   composition's ms.
+11e. maxvit_train one MaxViT-B train step at the cell maxvit_b384.train's
+                  shapes (batch 48, 384 px), as 11c: 48 forward and 48
+                  backward window-attention launches (a block's block and
+                  grid attention), 97 forward and 97 backward layer-norm
+                  launches (four a block, the head's), no roll and no
+                  PyTorch layer norm, the device ms by category, the
+                  largest kernels and the step's peak memory.
+11f. maxvit_norm  the fused layer norms in MaxViT-B's grid order (12,
+                  GRID) at batch 48, stage 1 (96² x 96) and stage 3 (24² x
+                  384) on a bf16 stream: 11d's checks and times.
 12. ring          the card's byte-limb ring conv (int8 torch._int_mm) against
                   the CPU's native int64 conv, bit for bit, at the stem conv
                   at 224 px, batch 1 (3->64, 7x7, stride 2, pad 3) and a
@@ -560,25 +570,30 @@ KERNELS = {
     # Swin's window attention replaces no TPU kernel (the JAX package has
     # no Swin): PyTorch's fused attention, which the port does not call.
     # Its path is one Swin-B train step at the cell swin_b384.train's
-    # shapes; the backward's time counts its finalize
+    # shapes, also one MaxViT-B step at maxvit_b384.train's; the backward's
+    # time counts its finalize
     "window_attention_fwd": {"replaces": "none: F.scaled_dot_product_attention (no Swin in JAX)",
-                             "path": "swin_train", "kernel": ("fmha_cutlassF_window_kernel",),
+                             "path": "swin_train", "also": ("maxvit_train",),
+                             "kernel": ("fmha_cutlassF_window_kernel",),
                              "source": "primia_tpu_torch/csrc/window_attention.cu"},
     "window_attention_bwd": {"replaces": "none: F.scaled_dot_product_attention (no Swin in JAX)",
-                             "path": "swin_train",
+                             "path": "swin_train", "also": ("maxvit_train",),
                              "kernel": ("fmha_cutlassB_window_kernel",
                                         "fmha_cutlassB_window_bias_grad_kernel"),
                              "source": "primia_tpu_torch/csrc/window_attention.cu"},
     # Swin's layer norms replace no TPU kernel either: F.layer_norm with the
     # roll, window partition and reverse, residual add and casts around it.
-    # Path: one Swin-B train step; the backward's time counts its finalize
+    # Path: one Swin-B train step, and a MaxViT-B one (MaxViT's block and
+    # grid attention reuse Swin's block); the backward's time counts its
+    # finalize
     "swin_norm_fwd": {"replaces": "none: F.layer_norm, roll, window partition, add, cast "
                                   "(no Swin in JAX)",
-                      "path": "swin_train", "kernel": ("swin_norm_fwd_kernel",),
+                      "path": "swin_train", "also": ("maxvit_train",),
+                      "kernel": ("swin_norm_fwd_kernel",),
                       "source": "primia_tpu_torch/csrc/swin_norm.cu"},
     "swin_norm_bwd": {"replaces": "none: F.layer_norm, roll, window partition, add, cast "
                                   "(no Swin in JAX)",
-                      "path": "swin_train",
+                      "path": "swin_train", "also": ("maxvit_train",),
                       "kernel": ("swin_norm_bwd_kernel", "swin_norm_finalize_kernel"),
                       "source": "primia_tpu_torch/csrc/swin_norm.cu"},
 }
@@ -1711,6 +1726,29 @@ def phase_swin_train(torch, seed):
     backward layer-norm launches. Then one more step under the profiler:
     no roll and no PyTorch layer-norm kernel among its device operations;
     its device ms by category and its 16 largest kernels."""
+    return attention_train_step(torch, seed, "swin_b384", "swin_train",
+                                {"window_attention_fwd": 24, "window_attention_bwd": 24,
+                                 "swin_norm_fwd": 53, "swin_norm_bwd": 53})
+
+
+def phase_maxvit_train(torch, seed):
+    """Phase 11e: one MaxViT-B train step at the cell maxvit_b384.train's
+    shapes (``benchmark/configs/maxvit_b384.json``: batch 48, 384 px), as
+    phase 11c: the path ``maxvit_train``, 48 forward and 48 backward
+    window-attention launches (each block's block and grid attention) and
+    97 forward and 97 backward layer-norm launches (four a block, the
+    head's); no roll and no PyTorch layer-norm kernel; the device ms by
+    category, the 16 largest kernels and the step's peak device memory."""
+    return attention_train_step(torch, seed, "maxvit_b384", "maxvit_train",
+                                {"window_attention_fwd": 48, "window_attention_bwd": 48,
+                                 "swin_norm_fwd": 97, "swin_norm_bwd": 97})
+
+
+def attention_train_step(torch, seed, config, phase, want):
+    """One train step of a benchmark configuration with window attention at
+    its cell's shapes after a warm-up step, its launch counters reset right
+    before it and checked against ``want``; then one more under the
+    profiler. Returns the counters."""
     import warnings
 
     from benchmark import common
@@ -1720,10 +1758,10 @@ def phase_swin_train(torch, seed):
     from primia_tpu_torch.train.steps import build_train_step
 
     dev = torch.device("cuda")
-    cfg = common.load_json(common.BENCH_DIR / "configs" / "swin_b384.json")
+    cfg = common.load_json(common.BENCH_DIR / "configs" / f"{config}.json")
     args = Arguments.from_dict(cfg["args"])
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # no pretrained Swin weights: a random start
+        warnings.simplefilter("ignore")  # no pretrained weights: a random start
         model = create_model(args, num_classes=cfg["architecture"]["num_classes"], device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     imgs, labels = common.make_images(g, args.batch_size, args.train_resolution)
@@ -1732,32 +1770,32 @@ def phase_swin_train(torch, seed):
     mask = torch.ones(args.batch_size)
     step(g, imgs, labels, mask, args.lr)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     step(g, imgs, labels, mask, args.lr)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
-    want = {"window_attention_fwd": 24, "window_attention_bwd": 24, "swin_norm_fwd": 53,
-            "swin_norm_bwd": 53}
     check(all(launches[n] == c for n, c in want.items()),
-          f"a Swin-B train step launched {launches}, expected {want}")
-    say("swin_train", batch=args.batch_size, resolution=args.train_resolution,
-        step_seconds=f"{secs:.6f}", launches=json.dumps(launches))
+          f"a {config} train step launched {launches}, expected {want}")
+    say(phase, batch=args.batch_size, resolution=args.train_resolution,
+        step_seconds=f"{secs:.6f}", peak_bytes=torch.cuda.max_memory_allocated(),
+        launches=json.dumps(launches))
     avgs = profile(torch, lambda: step(g, imgs, labels, mask, args.lr), 1)
     rows = device_rows(avgs)
     banned = [e.key for e in rows
               if any(t in e.key for t in ("roll_cuda_kernel", "layer_norm", "LayerNorm",
                                           "GammaBeta"))]
-    check(not banned, f"a Swin-B train step still launches {banned}")
+    check(not banned, f"a {config} train step still launches {banned}")
     norms = [e for e in rows if "swin_norm_" in e.key]
-    say("swin_train", device_ms=f"{sum(e.self_device_time_total for e in rows) * 1e-3:.3f}",
+    say(phase, device_ms=f"{sum(e.self_device_time_total for e in rows) * 1e-3:.3f}",
         operations=sum(e.count for e in rows),
         swin_norm_ms=f"{sum(e.self_device_time_total for e in norms) * 1e-3:.3f}",
         swin_norm_launches=sum(e.count for e in norms),
         **{k: f"{v:.3f}" for k, v in sorted(device_ms_by_category(avgs, 1).items())})
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
-        say("swin_train", kernel=e.key[:90].replace(" ", ""), count=e.count,
+        say(phase, kernel=e.key[:90].replace(" ", ""), count=e.count,
             device_ms=f"{e.self_device_time_total * 1e-3:.3f}")
     del model, step
     torch.cuda.empty_cache()
@@ -1767,7 +1805,22 @@ def phase_swin_train(torch, seed):
 SWIN_NORM_EPS = 1e-5
 
 
-def phase_swin_norm(torch, seed):
+# (label, map side, C, the stream's dtype name) of each phase's norm cases
+SWIN_NORM_MAPS = (("stage1", 96, 128, "float32"), ("stage3", 24, 512, "bfloat16"))
+MAXVIT_NORM_MAPS = (("maxvit_stage1", 96, 96, "bfloat16"), ("maxvit_stage3", 24, 384, "bfloat16"))
+
+
+def phase_maxvit_norm(torch, seed):
+    """Phase 11f: the fused layer norms in MaxViT-B's grid order (12, GRID)
+    at the cell's batch 48, stage 1 (96² x 96) and stage 3 (24² x 384), its
+    train step's bf16 stream: phase 11d's checks and times. Returns the
+    records of the stage-1 norm1 call."""
+    from primia_tpu_torch.ops.cuda_swin_norm import GRID
+
+    return phase_swin_norm(torch, seed, "maxvit_norm", 48, (12, GRID), MAXVIT_NORM_MAPS)
+
+
+def phase_swin_norm(torch, seed, phase="swin_norm", B=64, order=(12, 6), maps=SWIN_NORM_MAPS):
     """Phase 11d: Swin's fused layer norms on the port's kernels
     (``ops/cuda_swin_norm.py``, ``csrc/swin_norm.cu``): each kernel's
     registers and spills (cuobjdump); then at Swin-B's stage-1 map (64 x
@@ -1785,21 +1838,23 @@ def phase_swin_norm(torch, seed):
     once: at stage 1, 6 and 12 bytes an element forward, 14 and 16
     backward) and the plain composition's ms (a yardstick the port no
     longer runs). Returns the records of ``swin_norm_fwd`` and ``_bwd`` at
-    the stage-1 norm1 call."""
+    the stage-1 norm1 call. ``phase``, ``B``, ``order`` and ``maps`` (label,
+    side, C, stream dtype) name other cases (phase 11f)."""
     from primia_tpu_torch.ops import cuda_swin_norm as csn
 
     usage = resource_usage("swin_norm", mangled=True)
     for mangled, res in sorted((usage or {}).items()):
-        say("swin_norm", kernel=mangled,
+        say(phase, kernel=mangled,
             **{k.lower(): res[k] for k in ("REG", "STACK", "LOCAL", "SHARED") if k in res})
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, order, bf = 64, (12, 6), torch.bfloat16
+    bf, win = torch.bfloat16, order[0]
     rec = {}
-    for stage, side, C, stream in (("stage1", 96, 128, torch.float32),
-                                   ("stage3", 24, 512, torch.bfloat16)):
+    for stage, side, C, stream in maps:
+        stream = getattr(torch, stream)
         x = (torch.randn((B, side, side, C), generator=g, device=dev) * 2 + 0.5).to(stream)
-        br = torch.randn((B, (side // 12) ** 2, 144, C), generator=g, device=dev).to(bf)
+        br = torch.randn((B, (side // win) ** 2, win * win, C), generator=g,
+                         device=dev).to(bf)
         w = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
         b = 0.1 * torch.randn(C, generator=g, device=dev)
         for call in ("norm1", "norm2"):
@@ -1871,10 +1926,11 @@ def phase_swin_norm(torch, seed):
                          bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
                 _say_times(name, r, case=case, bytes_per_element=per_el)
                 rec[f"{case}_{way}"] = r
-            say("swin_norm", case=case, deterministic="yes", y_of_tolerance=f"{ulps:.3f}",
+            say(phase, case=case, deterministic="yes", y_of_tolerance=f"{ulps:.3f}",
                 plain_y_of_tolerance=f"{plain_ulps:.3f}",
                 **{f"gap_{n}": f"{v:.3g}" for n, v in gaps.items()})
-    return rec["stage1_norm1_fwd"], rec["stage1_norm1_bwd"]
+    first = f"{maps[0][0]}_norm1"
+    return rec[f"{first}_fwd"], rec[f"{first}_bwd"]
 
 
 def phase_ring(torch, seed):
@@ -5341,10 +5397,13 @@ def main(argv=None) -> int:
             torch, opts.seed)
         swin_launches = phase_swin_train(torch, opts.seed)
         rec["swin_norm_fwd"], rec["swin_norm_bwd"] = phase_swin_norm(torch, opts.seed)
+        maxvit_launches = phase_maxvit_train(torch, opts.seed)
+        phase_maxvit_norm(torch, opts.seed)
         phase_ring(torch, opts.seed)
         lap("dcf_wgrad_bn_noise_attention_swin_ring")
         profile_out = opts.profile_out.resolve()
         by_path = {"noise": noise_launches, "swin_train": swin_launches,
+                   "maxvit_train": maxvit_launches,
                    "serve": phase_serve(torch, opts.seed, work, profile_out)}
         lap("serve")
         by_path["encrypt"] = phase_encrypt(torch, opts.seed, work, profile_out)

@@ -25,8 +25,9 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-# swin-b: the port only (nn/swin.py); the JAX package has no such model
-VALID_MODELS = ("simpleconv", "resnet-18", "vgg16", "swin-b")
+# swin-b and maxvit-b: the port only (nn/swin.py, nn/maxvit.py); the JAX
+# package has no such models
+VALID_MODELS = ("simpleconv", "resnet-18", "vgg16", "swin-b", "maxvit-b")
 VALID_OPTIMIZERS = ("SGD", "Adam")
 VALID_POOLING = ("max", "avg")
 

@@ -19,7 +19,11 @@
 // The function. x is a (B, H, W, C) map of tokens, rows of C; an order
 // (window, shift) is the map rolled by (-shift, -shift) and partitioned into
 // window x window windows in row-major order, (B, nW, L, C), as torch.roll
-// and window_partition give it; window 0 is the natural order. Forward:
+// and window_partition give it; window 0 is the natural order; shift GRID
+// (-1) names MaxViT's grid of window x window (nn/maxvit.py): window (a, b)
+// of the (H / window) x (W / window) windows, row-major, holds the tokens at
+// (i H / window + a, j W / window + b), row-major in (i, j), as
+// grid_partition gives it. Forward:
 //   s = x [+ branch, read at its order]  (rounded to bf16 where x and the
 //                                         branch are bf16, as their add is)
 //   y = (s - mean) * rstd * gamma + beta, written at the out order in the
@@ -76,8 +80,10 @@ constexpr unsigned FULL = 0xffffffffu;
 // bits of `dtypes`: which operands are bf16 (the rest float32)
 enum { X_BF16 = 1, BRANCH_BF16 = 2, OUT_BF16 = 4 };
 
+constexpr int GRID = -1;  // an order's shift that names a grid
+
 struct Order {
-  int window, shift;  // window 0: the natural order
+  int window, shift;  // window 0: the natural order; shift GRID: a grid
 };
 
 struct Args {
@@ -104,6 +110,12 @@ __device__ __forceinline__ long long slot(long long row, const Args& a, Order o)
   const unsigned hw = a.H * a.W, n = static_cast<unsigned>(row), win = o.window;
   const unsigned b = n / hw, t = n - b * hw;
   const unsigned h = t / a.W, w = t - h * a.W;
+  if (o.shift == GRID) {  // window (h mod H / win, w mod W / win), token (h, w) div that
+    const unsigned nh = a.H / win, nw = a.W / win;
+    const unsigned i = h / nh, wy = h - i * nh;
+    const unsigned j = w / nw, wx = w - j * nw;
+    return static_cast<long long>((b * nh + wy) * nw + wx) * (win * win) + i * win + j;
+  }
   // rolled by (-shift, -shift)
   const unsigned r = h >= unsigned(o.shift) ? h - o.shift : h + a.H - o.shift;
   const unsigned c = w >= unsigned(o.shift) ? w - o.shift : w + a.W - o.shift;
@@ -398,7 +410,8 @@ const void* kernel_for(Build b) {
 
 bool bad_order(int H, int W, int window, int shift) {
   if (window == 0) return shift != 0;
-  return window < 0 || H % window || W % window || shift < 0 || shift >= window;
+  return window < 0 || H % window || W % window ||
+         (shift != GRID && (shift < 0 || shift >= window));
 }
 
 bool bad_shape(long long rows, int H, int W, int C, int dtypes, int bw, int bs, int ow,

@@ -229,8 +229,9 @@ def build_encrypted_predict(model: nn.Module, args, mean, std, device, *,
     numbers the streams too (a grid node keeps one predict function a
     request seed); 0 gives the streams above. ``party_devices``: a pair of
     devices, party 0's and party 1's (the module's note); None keeps both
-    parties' shares stacked on ``device``. A Swin Transformer raises a
-    ValueError: the engine has no softmax, GELU or layer norm over shares."""
+    parties' shares stacked on ``device``. A model with window attention
+    (Swin-B, MaxViT-B) raises a ValueError: the engine has no softmax, GELU
+    or layer norm over shares."""
     refuse(model, "the encrypted predict",
            "the MPC engine has no softmax, GELU or layer norm over shares")
     device = torch.device(device)

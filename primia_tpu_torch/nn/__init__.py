@@ -1,15 +1,17 @@
 """Model zoo of the port: ResNet-18, VGG-16, SimpleConv at 28/224/512 px,
-and Swin-B (``swin-b``, ``nn/swin.py``), which the JAX package does not have.
+and Swin-B (``swin-b``, ``nn/swin.py``) and MaxViT-B (``maxvit-b``,
+``nn/maxvit.py``), which the JAX package does not have.
 
 ``create_model(args, num_classes, device)`` follows
 ``primia_tpu/nn/__init__.py:create_model``: the model family, pooling and
 normalisation from the config, ``in_channels = 1 if data_dir == "mnist"
 or not pretrained else 3``, ResNet-18 and VGG-16 with the fixed
 ``input_size // 32`` head at ``inference_resolution``, SimpleConv at
-``train_resolution``, Swin-B with the window ``inference_resolution // 32``
-and its own layer norms; ``normalization = group`` for ResNet-18 and
-SimpleConv only. ``pooling_type`` applies to the CNN stems only: Swin-B's
-head is its mean over tokens (``pooling`` ``"avg"``). The model comes back
+``train_resolution``, Swin-B with the window and MaxViT-B with the
+partition ``inference_resolution // 32`` and their own norms;
+``normalization = group`` for ResNet-18 and SimpleConv only.
+``pooling_type`` applies to the CNN stems only: Swin-B's and MaxViT-B's
+heads take their mean over tokens (``pooling`` ``"avg"``). The model comes back
 in eval mode on ``device``, in ``channels_last`` memory format, with a
 seeded-or-not init, or, under
 ``pretrained = yes``, the local ImageNet weights (``nn/torch_import.py``:
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from primia_tpu_torch.nn.maxvit import MaxViT, maxvit_b  # noqa: F401
 from primia_tpu_torch.nn.resnet import ResNet, resnet18  # noqa: F401
 from primia_tpu_torch.nn.simpleconv import SimpleConv, simpleconv  # noqa: F401
 from primia_tpu_torch.nn.swin import SwinTransformer, swin_b  # noqa: F401
@@ -56,6 +59,9 @@ def create_model(args, num_classes: int = None, device="cuda") -> nn.Module:
     elif args.model == "swin-b":
         model = swin_b(num_classes=num_classes, in_channels=in_channels,
                        input_size=args.inference_resolution)
+    elif args.model == "maxvit-b":
+        model = maxvit_b(num_classes=num_classes, in_channels=in_channels,
+                         input_size=args.inference_resolution)
     else:
         raise ValueError(f"unknown model {args.model!r}")
     if args.pretrained:

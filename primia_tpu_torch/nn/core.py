@@ -120,24 +120,27 @@ class Conv(nn.Module):
     (fan_out, relu gain) init as the JAX package's ``kaiming_normal_conv``.
     With ``bias=True`` (VGG-16's and SimpleConv's convs; ResNet's have
     none) a zero-initialised bias is added after the conv in the conv's
-    output dtype, as the JAX package's ``E.bias_add``. Under
+    output dtype, as the JAX package's ``E.bias_add``. ``groups`` splits
+    the channels into that many groups convolved apart (``groups = cin =
+    cout``: MaxViT's depthwise convolutions, ``nn/maxvit.py``); the init's
+    fan-out is then ``k * k * cout / groups``. Under
     ``PRIMIA_PALLAS_WGRAD=1`` a conv that meets the JAX package's
-    condition runs as ``conv3x3_s1p1`` on the bfloat16 operands: the same
-    forward and data gradient, the weight gradient from K7, cast to
-    bfloat16 and back to the float32 parameter as autocast's gradient
-    is."""
+    condition (and has one group) runs as ``conv3x3_s1p1`` on the bfloat16
+    operands: the same forward and data gradient, the weight gradient from
+    K7, cast to bfloat16 and back to the float32 parameter as autocast's
+    gradient is."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-                 bias: bool = False):
+                 bias: bool = False, groups: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-        nn.init.normal_(self.weight, std=math.sqrt(2.0 / (k * k * cout)))
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
+        nn.init.normal_(self.weight, std=math.sqrt(2.0 * groups / (k * k * cout)))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
-        if (self.stride == 1 and self.padding == 1 and w.shape[2:] == (3, 3)
+        if (self.groups == 1 and self.stride == 1 and self.padding == 1 and w.shape[2:] == (3, 3)
                 and x.dim() == 4 and x.shape[0] > 1
                 # C >= 128 only, as the JAX package (nn/core.py:50-56)
                 and w.shape[1] >= 128 and w.shape[0] >= 128
@@ -145,7 +148,7 @@ class Conv(nn.Module):
             with torch.autocast(x.device.type, enabled=False):
                 y = conv3x3_s1p1(x.to(torch.bfloat16), w.to(torch.bfloat16))
         else:
-            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding, groups=self.groups)
         return y if self.bias is None else y + _channel(self.bias.to(y.dtype))
 
 

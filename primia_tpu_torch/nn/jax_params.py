@@ -14,9 +14,11 @@ linear -> ``weight`` (transposed)/``bias``; ``gamma``/``beta`` of a norm
 -> ``weight``/``bias``; its state ``mean``/``var``/``count`` ->
 ``running_mean``/``running_var``/``num_batches_tracked`` (int64); a
 layer norm has no state. The Swin Transformer's (``nn/swin.py``, which the
-JAX package does not have) attention modules add a leaf ``bias_table`` ->
+JAX package does not have) attention modules, which MaxViT's
+(``nn/maxvit.py``) reuse, add a leaf ``bias_table`` ->
 ``relative_position_bias_table``, kept as it is, and its patch merging a
-linear layer without ``b``.
+linear layer without ``b``. A depthwise conv's ``w`` is HWIO with one input
+channel a group, (3, 3, 1, C).
 
 A numbered level of module names is a JAX list when its keys are
 ``0 .. n-1`` (a layer's blocks, VGG's ``features``, the classifiers) and

@@ -68,10 +68,12 @@ MLP_RATIO = 4
 
 
 def refuse(model: nn.Module, path: str, missing: str) -> None:
-    """Raises a ValueError naming ``swin-b`` and what ``path`` lacks for it
-    when ``model`` is a Swin Transformer."""
-    if isinstance(model, SwinTransformer):
-        raise ValueError(f"{path} does not take swin-b: {missing}")
+    """Raises a ValueError naming the model (its ``model_name``: ``swin-b``,
+    ``maxvit-b``) and what ``path`` lacks for it when ``model`` holds a
+    window attention."""
+    if any(isinstance(m, WindowAttention) for m in model.modules()):
+        name = getattr(model, "model_name", type(model).__name__)
+        raise ValueError(f"{path} does not take {name}: {missing}")
 
 
 def relative_position_index(window: int) -> torch.Tensor:
@@ -173,7 +175,9 @@ class Mlp(nn.Module):
 
 class SwinBlock(nn.Module):
     """One block on a (B, H, W, C) map of ``resolution`` a side; ``shift``
-    is 0 (regular windows) or ``window // 2`` (shifted)."""
+    is 0 (regular windows), ``window // 2`` (shifted) or ``GRID``
+    (MaxViT's grid attention over a ``window`` x ``window`` grid,
+    ``nn/maxvit.py``): the block's order of ``ops/cuda_swin_norm.py``."""
 
     def __init__(self, dim: int, heads: int, resolution: int, window: int, shift: int):
         super().__init__()
@@ -185,7 +189,7 @@ class SwinBlock(nn.Module):
         self.norm2 = Norm(dim, "layer")
         self.mlp = Mlp(dim, MLP_RATIO * dim)
         self.register_buffer("attn_regions",
-                             shift_regions(resolution, window, shift) if shift else None,
+                             shift_regions(resolution, window, shift) if shift > 0 else None,
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -246,6 +250,7 @@ class SwinTransformer(nn.Module):
     tokens."""
 
     pooling = "avg"
+    model_name = "swin-b"
 
     def __init__(self, num_classes: int = 3, in_channels: int = 3, input_size: int = 384,
                  embed_dim: int = SWIN_B["embed_dim"],

@@ -167,9 +167,9 @@ def make_serving_fn(model: nn.Module, mean, std,
     """TF-ops inference closure over the model's frozen weights:
     ``images_u8 (B, R, R, C) uint8 -> logits (B, num_classes) float32``,
     ``build_eval_step``'s preprocessing (center crop to the train
-    resolution, per-channel normalise) and the eval-mode forward. A Swin
-    Transformer raises a ValueError: the exporter has no window attention,
-    layer norm or GELU."""
+    resolution, per-channel normalise) and the eval-mode forward. A model
+    with window attention (Swin-B, MaxViT-B) raises a ValueError: the
+    exporter has no window attention, layer norm or GELU."""
     refuse(model, "TF export", "the exporter has no window attention, layer norm or GELU")
     import tensorflow as tf
 

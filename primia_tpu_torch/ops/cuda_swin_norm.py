@@ -1,5 +1,6 @@
-"""Swin's layer norms as one hand-written kernel pair on the card, fused with
-the row permutations, the residual add and the cast around them.
+"""Swin's and MaxViT's layer norms as one hand-written kernel pair on the
+card, fused with the row permutations, the residual add and the cast around
+them.
 
 The CUDA kernels live in ``primia_tpu_torch/csrc/swin_norm.cu`` (its header
 note says what they replace, what bounds them and how they are laid out):
@@ -9,10 +10,12 @@ TPU kernel (the JAX package has no Swin).
 
 An *order* is ``(window, shift)``: the (B, H, W, C) map rolled by (-shift,
 -shift) and partitioned into windows in row-major order, (B, nW, L, C),
-exactly ``torch.roll`` then :func:`window_partition`; None is the natural
-(B, H, W, C) order. :func:`add_norm` takes x (B, H, W, C) and optionally a
-branch at ``branch_order``; it returns the residual stream ``s = x +
-branch`` in natural order (x itself where no branch is given) and ``y =
+exactly ``torch.roll`` then :func:`window_partition`; or ``(G, GRID)``: the
+map partitioned into a G x G grid, exactly :func:`grid_partition` (MaxViT's
+grid attention, ``nn/maxvit.py``); None is the natural (B, H, W, C) order.
+:func:`add_norm` takes x (B, H, W, C) and optionally a branch at
+``branch_order``; it returns the residual stream ``s = x + branch`` in
+natural order (x itself where no branch is given) and ``y =
 layer_norm(s)`` at ``out_order`` in ``out_dtype``. Its backward reads the
 gradient of y at ``out_order`` and the residual stream's own gradient (of
 s), and writes x's gradient in natural order, the two summed, and the
@@ -38,6 +41,8 @@ import torch.nn.functional as F
 from primia_tpu_torch.ops._build import declare, launch, on_card, query, sm_count
 
 Order = Optional[Tuple[int, int]]
+# an order's second element that names a grid: (G, GRID)
+GRID = -1
 
 _vp, _ci, _ll, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SHAPE = [_ll, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci]  # rows, H, W, C, dtypes, two orders
@@ -64,12 +69,31 @@ def window_reverse(x: torch.Tensor, window: int, H: int, W: int) -> torch.Tensor
     return x.reshape(B, H, W, C)
 
 
+def grid_partition(x: torch.Tensor, grid: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, nW, grid^2, C): window (a, b) of the (H / grid) x
+    (W / grid) windows, in row-major order, holds the tokens at (i H / grid
+    + a, j W / grid + b), i, j < grid, row-major in (i, j): each window
+    spreads over the whole map."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, grid, H // grid, grid, W // grid, C).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(B, (H // grid) * (W // grid), grid * grid, C)
+
+
+def grid_reverse(x: torch.Tensor, grid: int, H: int, W: int) -> torch.Tensor:
+    """The inverse of :func:`grid_partition`."""
+    B, _, _, C = x.shape
+    x = x.reshape(B, H // grid, W // grid, grid, grid, C).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(B, H, W, C)
+
+
 def to_order(x: torch.Tensor, order: Order) -> torch.Tensor:
     """(B, H, W, C) -> ``order``'s layout: rolled by (-shift, -shift), then
-    :func:`window_partition`."""
+    :func:`window_partition`; or :func:`grid_partition`."""
     if order is None:
         return x
     window, shift = order
+    if shift == GRID:
+        return grid_partition(x, window)
     if shift:
         x = torch.roll(x, (-shift, -shift), (1, 2))
     return window_partition(x, window)
@@ -80,6 +104,8 @@ def from_order(x: torch.Tensor, order: Order, H: int, W: int) -> torch.Tensor:
     if order is None:
         return x
     window, shift = order
+    if shift == GRID:
+        return grid_reverse(x, window, H, W)
     x = window_reverse(x, window, H, W)
     return torch.roll(x, (shift, shift), (1, 2)) if shift else x
 
@@ -96,7 +122,8 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """Raises a ValueError on operands the kernels do not take, on every
     device: x not (B, H, W, C), gamma or beta not (C,), an order whose
     window does not divide the map or whose shift is not under the window,
-    a branch not at its order's shape, operands on two devices."""
+    a branch not at its order's shape, operands on two devices. A grid's G
+    must divide the map as a window does."""
     if x.dim() != 4:
         raise ValueError(f"add_norm takes a (B, H, W, C) map, got {tuple(x.shape)}")
     _, H, W, C = x.shape
@@ -106,9 +133,10 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     for order in (branch_order, out_order):
         if order is not None:
             window, shift = order
-            if window < 1 or H % window or W % window or not 0 <= shift < window:
+            if window < 1 or H % window or W % window or not (shift == GRID
+                                                              or 0 <= shift < window):
                 raise ValueError(f"order {order} does not fit a {H} x {W} map: the window must "
-                                 f"divide it and the shift lie in [0, window)")
+                                 f"divide it and the shift lie in [0, window) or be GRID")
     if branch is None:
         if branch_order is not None:
             raise ValueError("a branch order without a branch")
@@ -124,9 +152,10 @@ def add_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, ep
                    out_order: Order = None, out_dtype: torch.dtype
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The composition the kernels replace, in plain PyTorch: the add of the
-    branch brought back to natural order (roll and window reverse), the
-    layer norm in float32, the roll and window partition to ``out_order``,
-    the cast to ``out_dtype``; differentiable. Returns (s, y)."""
+    branch brought back to natural order (roll and window reverse, or grid
+    reverse), the layer norm in float32, the roll and window partition (or
+    grid partition) to ``out_order``, the cast to ``out_dtype``;
+    differentiable. Returns (s, y)."""
     _, H, W, C = x.shape
     s = x if branch is None else x + from_order(branch, branch_order, H, W)
     with torch.autocast(x.device.type, enabled=False):

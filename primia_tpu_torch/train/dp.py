@@ -140,8 +140,8 @@ def build_dp_train_step(model: nn.Module, optimizer, args, mean, std,
     launches K7 once an example of the chunk, as the JAX package's ``vmap``
     batches its Pallas weight gradient.
 
-    A Swin Transformer raises a ValueError: no per-example gradient of its
-    window attention is held to a reference.
+    A model with window attention (Swin-B, MaxViT-B) raises a ValueError:
+    no per-example gradient of its window attention is held to a reference.
     """
     from torch.func import functional_call, grad_and_value, vmap
 
@@ -416,8 +416,9 @@ def build_ghost_dp_train_step(model: nn.Module, optimizer, args, mean, std,
        the division, ``optimizer.update``.
 
     Class weights drop out of a single example's hard-label cross entropy
-    (``w_y ce / w_y``), as in the microbatched path. A Swin Transformer
-    raises a ValueError: ghost clipping has no rule for attention."""
+    (``w_y ce / w_y``), as in the microbatched path. A model with window
+    attention (Swin-B, MaxViT-B) raises a ValueError: ghost clipping has no
+    rule for attention."""
     refuse(model, "the ghost-norm DP step",
            "ghost clipping has no per-example norm rule for attention")
     device = torch.device(device)

@@ -93,7 +93,8 @@ def profile(logdir: str = "build/primia_trace"):
 # host counters, counted only while a profiler runs: ``h2d_copies``, the
 # host arrays copied onto a step's device by ``train/steps.py:_on`` and
 # ``data/loader.py:BatchLoader``'s index upload (:func:`count_h2d`);
-# ``attention_calls``, the calls of ``nn/swin.py:window_attention``
+# ``attention_calls``, the calls of ``nn/swin.py:window_attention`` (one a
+# Swin-B block; two a MaxViT-B block, its block and its grid attention)
 counters: Dict[str, int] = {"h2d_copies": 0, "attention_calls": 0}
 
 

@@ -2,7 +2,8 @@
 reference (``benchmark/reference/families/swin.py``), which the JAX package
 has no counterpart of, on seeded weights (``benchmark.common.make_weights``);
 its parts against brute-force forms; its train step, CLI and checkpoint; the
-paths that refuse it.
+paths that refuse it, and MaxViT-B (``nn/maxvit.py``), which holds the same
+window attention.
 
 At 96 px the window is 3 and the stages' maps are 24², 12², 6² and 3²
 tokens, so the first three stages shift their odd blocks (by one token) and
@@ -409,30 +410,46 @@ def test_train_cli_trains_swin(tmp_path, fixture_dir, monkeypatch):
 
 # ------------------------------------------------------------ refusals
 
-def test_the_encrypted_predict_refuses_swin():
+# every model that holds a window attention: the narrow Swin and a tiny
+# MaxViT (stem 16, widths 32-64, depths 1-2, 64 px), refused by name
+ATTENTION_MODELS = ["swin-b", "maxvit-b"]
+
+
+def _attention_model(name):
+    from primia_tpu_torch.nn import maxvit
+
+    if name == "swin-b":
+        return _seeded(NARROW)[0]
+    return maxvit.MaxViT(input_size=64, stem_width=16, widths=(32, 64), depths=(1, 2))
+
+
+@pytest.mark.parametrize("name", ATTENTION_MODELS)
+def test_the_encrypted_predict_refuses_swin(name):
     from primia_tpu_torch.mpc.inference import build_encrypted_predict
 
-    model, _, _ = _seeded(NARROW)
-    with pytest.raises(ValueError, match="swin-b: the MPC engine has no softmax, GELU or layer"):
+    model = _attention_model(name)
+    with pytest.raises(ValueError, match=f"{name}: the MPC engine has no softmax, GELU or layer"):
         build_encrypted_predict(model, _args(), [0.5] * 3, [0.25] * 3, "cpu")
 
 
+@pytest.mark.parametrize("name", ATTENTION_MODELS)
 @pytest.mark.parametrize("make_step,what", [("build_dp_train_step", "per-example gradient"),
                                           ("build_ghost_dp_train_step", "no per-example norm "
                                                                         "rule for attention")])
-def test_the_dp_steps_refuse_swin(make_step, what):
+def test_the_dp_steps_refuse_swin(make_step, what, name):
     from primia_tpu_torch.train import dp
 
-    model, _, _ = _seeded(NARROW)
+    model = _attention_model(name)
     args = _args(differentially_private=True)
-    with pytest.raises(ValueError, match=f"swin-b: .*{what}"):
+    with pytest.raises(ValueError, match=f"{name}: .*{what}"):
         getattr(dp, make_step)(model, make_optimizer(args, model), args, [0.5] * 3, [0.25] * 3,
                              device="cpu")
 
 
-def test_tf_export_refuses_swin():
+@pytest.mark.parametrize("name", ATTENTION_MODELS)
+def test_tf_export_refuses_swin(name):
     from primia_tpu_torch.nn import tf_export
 
-    model, _, _ = _seeded(NARROW)
-    with pytest.raises(ValueError, match="swin-b: the exporter has no window attention"):
+    model = _attention_model(name)
+    with pytest.raises(ValueError, match=f"{name}: the exporter has no window attention"):
         tf_export.make_serving_fn(model, [0.5] * 3, [0.25] * 3)

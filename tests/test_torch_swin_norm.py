@@ -3,8 +3,10 @@ the plain version against the composition it replaces (``F.layer_norm``,
 ``torch.roll``, the window partition; the window reverse, the roll back
 and the residual add), bit for bit in float32, forward and gradients, at
 Swin-B's stage maps at 384 px (window 12) and 224 px (window 7), a window
-equal to the map, and the widths 128 to 2048; a whole Swin-B block against
-the old formula written out; the refusals. Marked ``cuda`` (they skip
+equal to the map, and the widths 128 to 2048; MaxViT-B's grid order
+(``GRID``) against its partition written as reshapes here, at its stage
+maps and widths 96 to 768, in float32 and bf16; a whole Swin-B block and a
+grid-attention block against the old formula written out; the refusals. Marked ``cuda`` (they skip
 without a card): the kernels against the plain version in every dtype the
 model hands them, the gamma and beta gradients the same bits twice, and a
 Swin-B train step's launches, with no roll left in its device operations.
@@ -48,8 +50,24 @@ def _params(C, g, device="cpu"):
     return w, b
 
 
+def _grid(x, G):
+    """MaxViT's grid partition as torch reshapes: window (a, b) of the
+    (H / G) x (W / G) windows holds the tokens (i H / G + a, j W / G + b)."""
+    B, H, W, C = x.shape
+    return x.reshape(B, G, H // G, G, W // G, C).permute(0, 2, 4, 1, 3, 5).reshape(
+        B, (H // G) * (W // G), G * G, C)
+
+
+def _ungrid(y, G, H, W):
+    B, _, _, C = y.shape
+    return y.reshape(B, H // G, W // G, G, G, C).permute(0, 3, 1, 4, 2, 5).reshape(B, H, W, C)
+
+
 def _ordered(x, window, shift):
-    """The old block's way to its windows: roll, then the partition."""
+    """The old block's way to its windows: roll, then the partition (or
+    the grid partition)."""
+    if shift == csn.GRID:
+        return _grid(x, window)
     if shift:
         x = torch.roll(x, (-shift, -shift), (1, 2))
     return csn.window_partition(x, window)
@@ -57,6 +75,8 @@ def _ordered(x, window, shift):
 
 def _natural(y, window, shift, H, W):
     """The old block's way back: the reverse, then the roll back."""
+    if shift == csn.GRID:
+        return _ungrid(y, window, H, W)
     y = csn.window_reverse(y, window, H, W)
     return torch.roll(y, (shift, shift), (1, 2)) if shift else y
 
@@ -66,7 +86,11 @@ def _natural(y, window, shift, H, W):
 # (window 7, shift 3), a wider C at each map, up to the last merge's 2048
 CASES = [(96, 12, 0, 128), (96, 12, 6, 128), (48, 12, 6, 256), (24, 12, 0, 512),
          (24, 12, 6, 2048), (12, 12, 0, 1024), (56, 7, 3, 128), (28, 7, 3, 256),
-         (14, 7, 3, 512), (7, 7, 0, 1024)]
+         (14, 7, 3, 512), (7, 7, 0, 1024),
+         # MaxViT-B's grid order at its stage maps and widths at 384 px (grid
+         # 12: stage 4's map is one window), and at 224 px (grid 7)
+         (96, 12, csn.GRID, 96), (48, 12, csn.GRID, 192), (24, 12, csn.GRID, 384),
+         (12, 12, csn.GRID, 768), (56, 7, csn.GRID, 96)]
 
 
 @pytest.mark.parametrize("side,window,shift,C", CASES)
@@ -127,11 +151,38 @@ def test_plain_add_norm_rounds_as_autocast_would():
         assert torch.equal(y, F.layer_norm(want.float(), (32,), w, b, EPS).bfloat16())
 
 
-@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_plain_grid_order_rounds_as_autocast_would(xdtype):
+    """MaxViT's grid attention on its bf16 stream (a convolution's output
+    under autocast) and on the eval step's float32 one, C 96: norm1 writes
+    y at the grid order and norm2 reads the bf16 branch from it, the sum
+    in x's dtype and the layer norm in float32 rounded once to bf16, bit
+    for bit the composition with the grid written as reshapes, forward and
+    the gradients of x, the branch, gamma and beta."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 24, 24, 96, generator=g).to(xdtype).requires_grad_()
+    br = torch.randn(2, 4, 144, 96, generator=g).bfloat16().requires_grad_()
+    w, b = _params(96, g)
+    order = (12, csn.GRID)
+    s1, y1 = csn.add_norm(x, w, b, EPS, out_order=order, out_dtype=torch.bfloat16)
+    want1 = _grid(F.layer_norm(x.float(), (96,), w, b, EPS), 12).bfloat16()
+    assert s1 is x and y1.dtype == torch.bfloat16 and torch.equal(y1, want1)
+    s2, y2 = csn.add_norm(x, w, b, EPS, branch=br, branch_order=order, out_dtype=torch.bfloat16)
+    s_old = x + _ungrid(br, 12, 24, 24)
+    y_old = F.layer_norm(s_old.float(), (96,), w, b, EPS).bfloat16()
+    assert s2.dtype == xdtype and torch.equal(s2, s_old) and torch.equal(y2, y_old)
+    ups = [torch.randn(t.shape, generator=g).to(t.dtype) for t in (s2, y2)]
+    got = torch.autograd.grad((s2, y2), (x, br, w, b), ups)
+    ref = torch.autograd.grad((s_old, y_old), (x, br, w, b), ups)
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("shift", [0, 6, csn.GRID])
 def test_a_swin_b_block_is_the_old_formula(shift):
     """A stage-1 Swin-B block (C 128, 4 heads) on a 24 x 24 map at window 12,
-    float32: its forward and the gradients of its input and every
-    parameter are the old block's formula, written out here, bit for bit."""
+    regular, shifted or in MaxViT's grid order (a grid of 12), float32: its
+    forward and the gradients of its input and every parameter are the old
+    block's formula, written out here, bit for bit."""
     torch.manual_seed(11 + shift)
     blk = swin.SwinBlock(128, 4, 24, 12, shift)
     with torch.no_grad():
@@ -160,6 +211,8 @@ def test_a_swin_b_block_is_the_old_formula(shift):
     ({"w": (31,)}, r"gamma and beta must be \(32,\)"),
     ({"out_order": (4, 1)}, r"order \(4, 1\) does not fit a 6 x 6 map"),
     ({"out_order": (3, 3)}, r"order \(3, 3\) does not fit"),
+    ({"out_order": (4, csn.GRID)}, r"order \(4, -1\) does not fit a 6 x 6 map"),
+    ({"out_order": (3, -2)}, r"order \(3, -2\) does not fit"),
     ({"branch": (2, 6, 6, 32), "branch_order": (3, 1)}, r"branch must be \(2, 4, 9, 32\)"),
     ({"branch_order": (3, 1)}, "a branch order without a branch"),
 ])
@@ -208,7 +261,12 @@ def _rel(got, want):
 # norms' widths, and C 96 (a row of 24 chunks: part of a warp idle)
 CARD_CASES = [(4, 96, 12, 6, 128), (4, 48, 12, 6, 256), (8, 24, 12, 0, 512),
               (8, 12, 12, 0, 1024), (8, 12, 12, 0, 2048), (4, 56, 7, 3, 128), (4, 7, 7, 0, 1024),
-              (2, 8, 4, 2, 96)]
+              (2, 8, 4, 2, 96),
+              # MaxViT-B's grid order at its four stage maps and widths, and its
+              # block order at stage 1's (C 96: 24 chunks, a warp's last 8
+              # lanes idle; C 192, 384, 768: a team's last chunk idle)
+              (2, 96, 12, csn.GRID, 96), (2, 48, 12, csn.GRID, 192),
+              (4, 24, 12, csn.GRID, 384), (8, 12, 12, csn.GRID, 768), (2, 96, 12, 0, 96)]
 # (x, branch, y) as the model hands them: the train step's norm1 and norm2
 # in stage 1 (a float32 stream) and in stages 2-4 (a bf16 stream: the
 # merges' linear output), the embedding's and the final norm (bf16 in,
